@@ -18,8 +18,8 @@ def main(outname: str = "cluster-ics.png", n: int = 2000) -> None:
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from al26_tpu.models.fractal import fractal_positions_velocities
-    from al26_tpu.models.plummer import plummer_positions_velocities
+    from al26.models.fractal import fractal_positions_velocities
+    from al26.models.plummer import plummer_positions_velocities
 
     rng = np.random.default_rng(0)
     fig, axes = plt.subplots(1, 3, figsize=(12, 4))

@@ -19,7 +19,7 @@ import numpy as np
 
 
 def build_payload(n_stars=1000, n_checkpoints=1000) -> bytes:
-    from al26_tpu.io import ubjson
+    from al26.io import ubjson
 
     rng = np.random.default_rng(0)
     series = {

@@ -18,7 +18,7 @@ def main(outname: str = "disc-lifetimes.png", n: int = 100_000) -> None:
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from al26_tpu.models.discs import DISK_LIFETIME_MEAN_MYR, draw_disk_lifetimes
+    from al26.models.discs import DISK_LIFETIME_MEAN_MYR, draw_disk_lifetimes
 
     rng = np.random.default_rng(0)
     tau = draw_disk_lifetimes(rng, n)

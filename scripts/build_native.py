@@ -1,4 +1,4 @@
-"""Build the C++ native extensions into al26_tpu/io/native/.
+"""Build the C++ native extensions into al26/io/native/.
 
 Usage: python scripts/build_native.py
 Compiles _ubjson_native (UBJSON Draft-12 codec accelerator) with the
@@ -14,7 +14,7 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NATIVE_DIR = os.path.join(REPO, "al26_tpu", "io", "native")
+NATIVE_DIR = os.path.join(REPO, "al26", "io", "native")
 
 
 def build() -> str:

@@ -1,7 +1,7 @@
 """Generate the CHECKED-IN byte-frozen AMUSE-format state pickle
 (tests/golden/amuse/pt-0-state-00003.pkl.zst).
 
-VERDICT r4 item 5: the tolerant unpickler (al26_tpu.io.compat) was only
+VERDICT r4 item 5: the tolerant unpickler (al26.io.compat) was only
 ever exercised against fixture bytes built in the same test process — a
 builder/loader co-drift could pass silently. This script freezes one
 deterministic fixture byte stream into the repo: a reference-layout
@@ -45,11 +45,11 @@ def build() -> bytes:
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    from al26_tpu.config import SimConfig
-    from al26_tpu.io.compat import cluster_to_particles
-    from al26_tpu.io.compression import compress
-    from al26_tpu.sim import init_cluster
-    from al26_tpu.state import cluster_to_numpy
+    from al26.config import SimConfig
+    from al26.io.compat import cluster_to_particles
+    from al26.io.compression import compress
+    from al26.sim import init_cluster
+    from al26.state import cluster_to_numpy
     from amuse_fixture import build_state_pickle
 
     cfg = SimConfig(n=N_FIX, rc=1.0, final_time=10.0, seed=SEED_FIX,

@@ -1,5 +1,5 @@
 """Extract the SeBa compact-remnant event dumps shipped inside the
-reference repository into al26_tpu/data/seba/binev-events.csv.
+reference repository into al26/data/seba/binev-events.csv.
 
 The reference repo commits `limongi-2006.tar.gz`, whose
 `limongi-chieffi-2006/binev.data` is the raw event log SeBa appends to
@@ -19,7 +19,7 @@ Record layout (SeBa star_state dump, one event = 3 lines):
     <f0> <Z> <t_myr> <rel_age> <mass> <m_core> <m_core2> <radius> ...
 
 Only the first five numeric fields of the state line are consumed
-downstream (al26_tpu.models.stellar.seba_anchors):
+downstream (al26.models.stellar.seba_anchors):
 Z, the event time (Myr), the stellar mass at the dump (the PRE-supernova
 mass for remnant-type dumps: SeBa collapses the mass to the remnant on
 the step AFTER the dump) and the core/remnant mass. Stellar types seen:
@@ -43,7 +43,7 @@ import tarfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_TARBALL = "/root/reference/limongi-2006.tar.gz"
 MEMBER = "limongi-chieffi-2006/binev.data"
-OUT = os.path.join(REPO, "al26_tpu", "data", "seba", "binev-events.csv")
+OUT = os.path.join(REPO, "al26", "data", "seba", "binev-events.csv")
 
 HEADER = "stellar_type,z,t_myr,rel_age,mass,m_core\n"
 

@@ -12,7 +12,7 @@ Equivalent of the reference's limongi-chieffi-2018/fit-data.py:55-120:
   * SNe   = table8 - table9 for 13-25 Msun only.
 
 Usage: python scripts/gen_yield_tables.py [raw_dir] [out_dir]
-Defaults regenerate al26_tpu/data/limongi_chieffi_2018/*.csv from raw/.
+Defaults regenerate al26/data/limongi_chieffi_2018/*.csv from raw/.
 The regeneration is validated against the shipped CSVs in
 tests/test_datagen.py.
 """
@@ -26,7 +26,7 @@ SNE_MASSES = MASSES[:4]
 
 _DEFAULT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "al26_tpu", "data", "limongi_chieffi_2018",
+    "al26", "data", "limongi_chieffi_2018",
 )
 
 
@@ -88,7 +88,7 @@ def write_csv(path: str, isotopes, rows, mass_cols, vel=300, feh=0) -> None:
 def main(raw_dir: str | None = None, out_dir: str | None = None) -> None:
     # The velocity grid and file-name suffix convention are owned by the
     # runtime reader so generator and reader cannot drift apart.
-    from al26_tpu.models.yields import _FEH_GRID, LC18_VELS, lc18_suffix
+    from al26.models.yields import _FEH_GRID, LC18_VELS, lc18_suffix
 
     raw_dir = raw_dir or os.path.join(_DEFAULT_DIR, "raw")
     out_dir = out_dir or _DEFAULT_DIR

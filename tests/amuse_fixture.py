@@ -18,7 +18,7 @@ module paths and instance layouts:
 `build_state_pickle` registers them under fake `amuse.*` / `al26_nbody`
 modules ONLY while pickling, so the byte stream records the real AMUSE
 class paths; the modules are removed afterwards, which forces loading to go
-through `al26_tpu.io.compat`'s tolerant unpickler + graph miner — exactly
+through `al26.io.compat`'s tolerant unpickler + graph miner — exactly
 the situation with a genuine reference file on a machine without AMUSE.
 
 To exercise the unit conversion for real, positions/velocities are stored
@@ -34,7 +34,7 @@ from datetime import datetime
 
 import numpy as np
 
-from al26_tpu.units import MSUN_SI, MYR_SI, PC_SI, YR_SI
+from al26.units import MSUN_SI, MYR_SI, PC_SI, YR_SI
 
 _AMUSE_MODULES = [
     "amuse", "amuse.datamodel", "amuse.datamodel.particles",

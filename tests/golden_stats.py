@@ -26,8 +26,8 @@ def run_golden(sn_parity_mode: bool = False, mass_tracks: str = "lc18"):
     import jax
 
     assert jax.config.jax_enable_x64, "golden stats require x64 (conftest)"
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim import init_cluster, run_steps
+    from al26.config import SimConfig
+    from al26.sim import init_cluster, run_steps
 
     cfg = SimConfig(n=N_GOLDEN, rc=1.0, final_time=10.0, seed=SEED_GOLDEN,
                     dtype="f64", sn_parity_mode=sn_parity_mode,
@@ -42,7 +42,7 @@ def summarize(state, cfg) -> dict:
     per-channel cluster sums the CSV rows carry (al26_nbody.py:221-241) and
     the final-enrichment ratio percentiles postprocess.py derives
     (plotting/postprocess.py:90-118)."""
-    from al26_tpu.state import CHANNEL_NAMES, ISO_NAMES
+    from al26.state import CHANNEL_NAMES, ISO_NAMES
 
     c = state.cluster
     slr = np.asarray(c.slr, np.float64)

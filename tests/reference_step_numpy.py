@@ -3,7 +3,7 @@ physics (evolve_simulation, al26_nbody.py:704-1113) — VERDICT r2 item 3.
 
 This module is written FROM THE REFERENCE SOURCE, line by line, using
 plain Python loops exactly as the numba kernels do — deliberately NOT
-from al26_tpu's vectorised ops — so diffing `step()` against it converts
+from al26's vectorised ops — so diffing `step()` against it converts
 kernel-level parity (tests/test_deposition.py golden tests) into
 STEP-level parity: the composed ordering, gating and accumulation of
 
@@ -17,7 +17,7 @@ STEP-level parity: the composed ordering, gating and accumulation of
 
 The N-body advance itself (:833) is held frozen (fixed positions) — its
 parity is covered separately by the integrator/energy tests — and the
-stellar mass/rate tracks come from al26_tpu's stellar module (shared
+stellar mass/rate tracks come from al26's stellar module (shared
 input data: the reference gets them from the out-of-process SeBa code,
 which does not exist here; docs/stellar_model.md).
 

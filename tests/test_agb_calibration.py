@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.models.stellar import agb_calibration as cal
-from al26_tpu.models.stellar import evolution as st
-from al26_tpu.models.stellar import hurley2000
+from al26.models.stellar import agb_calibration as cal
+from al26.models.stellar import evolution as st
+from al26.models.stellar import hurley2000
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 

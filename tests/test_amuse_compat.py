@@ -5,7 +5,7 @@ graph — Particles -> _private -> InMemoryAttributeStorage ->
 InMemoryVectorQuantityAttribute -> VectorQuantity -> units.core expression
 trees — pickled under the genuine `amuse.*` module paths, which are NOT
 importable here. Everything below therefore exercises the tolerant
-unpickler + graph miner (al26_tpu.io.compat) end to end:
+unpickler + graph miner (al26.io.compat) end to end:
 load_state payloads, a resumed simulation, and plotting/postprocess.
 """
 import os
@@ -14,13 +14,13 @@ import pickle
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.io import checkpoint as ckpt
-from al26_tpu.io.compat import cluster_to_particles
-from al26_tpu.io.compression import compress
-from al26_tpu.io.yields_store import Yields
-from al26_tpu.sim import init_cluster
-from al26_tpu.state import cluster_to_numpy
+from al26.config import SimConfig
+from al26.io import checkpoint as ckpt
+from al26.io.compat import cluster_to_particles
+from al26.io.compression import compress
+from al26.io.yields_store import Yields
+from al26.sim import init_cluster
+from al26.state import cluster_to_numpy
 from amuse_fixture import build_state_pickle
 
 N_FIX = 12
@@ -55,7 +55,7 @@ def test_fixture_requires_tolerant_loading(fixture_dir):
     """The fixture genuinely embeds amuse.* class paths: plain pickle.loads
     must fail with ModuleNotFoundError, as a real reference file would."""
     _, sim_dir, _, _ = fixture_dir
-    from al26_tpu.io.compression import decompress
+    from al26.io.compression import decompress
 
     with open(str(sim_dir / "pt-0-state-00000.pkl.zst"), "rb") as f:
         data = decompress(f.read())
@@ -67,7 +67,7 @@ def test_load_state_mines_the_amuse_graph(fixture_dir):
     """load_state on an AMUSE pickle returns a WORKING Particles table with
     values converted from the stored units (SI positions, MSun masses,
     MSun/yr mdot) back to canonical columns."""
-    from al26_tpu.units import msol, myr, pc
+    from al26.units import msol, myr, pc
 
     _, sim_dir, cols, _ = fixture_dir
     st = ckpt.load_state(str(sim_dir / "pt-0-state-00003.pkl.zst"))
@@ -93,8 +93,8 @@ def test_load_state_mines_the_amuse_graph(fixture_dir):
 def test_resume_from_reference_checkpoint(fixture_dir):
     """load_run + one stepped chunk from an AMUSE-format checkpoint: the
     full resume path (al26_nbody.py:1647-1656) on a reference file."""
-    from al26_tpu.sim.driver import load_run
-    from al26_tpu.sim.step import run_steps
+    from al26.sim.driver import load_run
+    from al26.sim.step import run_steps
 
     _, sim_dir, cols, _ = fixture_dir
     state, aux, cfg, metadata, yields, converter = load_run(
@@ -115,7 +115,7 @@ def test_postprocess_runs_on_reference_files(fixture_dir):
     (the reference's own post-processing workflow, postprocess.py:59-67)."""
     import pandas as pd
 
-    from al26_tpu.plotting import postprocess
+    from al26.plotting import postprocess
 
     root, _, cols, _ = fixture_dir
     out = str(root / "all-sims-ratios.pkl.zst")
@@ -139,7 +139,7 @@ def test_checked_in_reference_state_loads():
     paths, random uint64 particle keys, sorted-key storage ancillaries,
     SI-stored positions and a real converter payload — bytes that cannot
     co-drift with the in-process fixture builder."""
-    from al26_tpu.plotting.lib import read_state
+    from al26.plotting.lib import read_state
 
     path = os.path.join(os.path.dirname(__file__), "golden", "amuse",
                         "pt-0-state-00003.pkl.zst")
@@ -158,7 +158,7 @@ def test_checked_in_reference_state_loads():
         if name.startswith(("mass_26al", "mass_60fe")):
             expect_slr[name] = rng.uniform(1e-12, 1e-8, n)
 
-    from al26_tpu.units import msol, myr, pc
+    from al26.units import msol, myr, pc
 
     np.testing.assert_allclose(cluster.x.value_in(pc),
                                ref_cols["x"], rtol=1e-12)
@@ -173,7 +173,7 @@ def test_checked_in_reference_state_loads():
             np.asarray(getattr(cluster, name).value_in(msol)), v,
             rtol=1e-12, err_msg=name)
     # metadata round-trips with units re-tagged
-    from al26_tpu.units import myr
+    from al26.units import myr
 
     assert abs(float(state.metadata.time.value_in(myr)) - 3.0) < 1e-12
     assert state.metadata.args.n == n

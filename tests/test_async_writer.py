@@ -8,7 +8,7 @@ import time
 
 import pytest
 
-from al26_tpu.io.async_writer import AsyncCheckpointWriter
+from al26.io.async_writer import AsyncCheckpointWriter
 
 
 def test_jobs_run_in_submission_order():
@@ -72,8 +72,8 @@ def test_async_and_sync_runs_write_identical_files(tmp_path):
     same files, same bytes — modulo the pickled Metadata timestamps, so
     compare the deterministic artifacts (yields + CSV) byte-for-byte and
     the state-file SET by name."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     outs = {}
     for mode, async_on in (("async", True), ("sync", False)):

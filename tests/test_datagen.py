@@ -15,7 +15,7 @@ def test_yield_table_reduction_matches_shipped(tmp_path):
     reproduce the shipped values for every isotope/mass."""
     import gen_yield_tables as g
 
-    from al26_tpu.models.yields import DATA_DIR, _read_yield_table
+    from al26.models.yields import DATA_DIR, _read_yield_table
 
     raw = os.path.join(DATA_DIR, "limongi_chieffi_2018", "raw")
     g.main(raw, str(tmp_path))
@@ -43,7 +43,7 @@ def test_yield_table_reduction_matches_shipped(tmp_path):
 def test_yield_table_full_isotope_count(tmp_path):
     import gen_yield_tables as g
 
-    from al26_tpu.models.yields import DATA_DIR
+    from al26.models.yields import DATA_DIR
 
     raw = os.path.join(DATA_DIR, "limongi_chieffi_2018", "raw")
     isotopes, wind_rows, sne_rows = g.reduce_tables(raw)
@@ -74,7 +74,7 @@ def test_agb_table_generation(tmp_path):
     assert data[-1, 1] < data[0, 1]
     assert 0.5 < data[-1, 1] < 1.2  # ~WD mass for 3 Msun
     # generated table is loadable by the runtime AGB reader
-    from al26_tpu.models.agb import read_agbs
+    from al26.models.agb import read_agbs
 
     # read_agbs expects data_dir/agb_wind/
     agbdir = tmp_path / "agb_wind"

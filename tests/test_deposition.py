@@ -3,9 +3,9 @@ transcriptions of the reference formulas (SURVEY.md §4d,e)."""
 import jax.numpy as jnp
 import numpy as np
 
-from al26_tpu.ops import deposition as dep
-from al26_tpu.state import CH_AGB
-from al26_tpu.units import LN2_REFERENCE
+from al26.ops import deposition as dep
+from al26.state import CH_AGB
+from al26.units import LN2_REFERENCE
 
 
 def _reference_wind_abs(lm_id, hm_id, x, v, mdot, wind_ratio, r_disk,

@@ -5,15 +5,15 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.step import run_steps, step
+from al26.config import SimConfig
+from al26.sim import init_cluster
+from al26.sim.step import run_steps, step
 
 
 def test_mass_delta_correction_is_exact():
     """Linearity in source masses: cached eval + correction == fresh eval
     with the new masses, to float round-off."""
-    from al26_tpu.ops.nbody import (
+    from al26.ops.nbody import (
         acc_jerk_pot_dense, acc_pot_dense, mass_delta_correction,
     )
 
@@ -56,7 +56,7 @@ def test_mass_delta_correction_chunked_bitwise():
     program shapes — observed 1 ulp on 1/300 elements in f64). Covers row
     padding (n not a multiple of block), jerk=None, pot_softened and the
     ensemble group mask."""
-    from al26_tpu.ops.nbody import mass_delta_correction
+    from al26.ops.nbody import mass_delta_correction
 
     rng = np.random.default_rng(11)
     n = 100  # not a multiple of block: exercises the -1 target padding
@@ -95,9 +95,9 @@ def test_cached_leapfrog_equals_uncached():
     """Without mass evolution the cache is mathematically identical to a
     fresh opening sweep (same kernel call at the same operands): step-level
     application is BITWISE identical, and the scanned run matches per-step
-    stepping to compile-variation round-off (the MXU matmul reduction may
-    re-associate between the scan and standalone-step programs)."""
-    from al26_tpu.sim.step import _step_impl, fresh_cache
+    stepping to compile-variation round-off (a reduction may re-associate
+    between the scan and standalone-step programs)."""
+    from al26.sim.step import _step_impl, fresh_cache
 
     cfg = SimConfig(n=96, rc=1.0, final_time=1.0, seed=9, dtype="f32",
                     integrator="leapfrog", leapfrog_n_sub=2,
@@ -151,7 +151,7 @@ def test_cached_block_with_mass_loss_tracks_uncached():
 def test_cached_run_steps_cached_threads_across_chunks():
     """run_steps_cached(state, cache) across two chunks == one chunk of the
     same total length (the driver's checkpoint-boundary threading)."""
-    from al26_tpu.sim.step import _resolve_integ, fresh_cache, run_steps_cached
+    from al26.sim.step import _resolve_integ, fresh_cache, run_steps_cached
 
     cfg = SimConfig(n=96, rc=1.0, final_time=1.0, seed=9, dtype="f32",
                     integrator="leapfrog", leapfrog_n_sub=2,
@@ -175,12 +175,12 @@ def test_ensemble_flat_cache_matches_uncached(monkeypatch):
     """The flat ensemble's cached scan equals the uncached flat stepping
     (bitwise without mass evolution; the mass-delta correction is exact, so
     with massive stars only float summation order differs)."""
-    import al26_tpu.ops.pallas_nbody as pk
-    from al26_tpu.parallel.ensemble import (
+    import al26.ops.backend as pk
+    from al26.parallel.ensemble import (
         ensemble_run_steps, ensemble_step_flat, init_ensemble,
     )
 
-    monkeypatch.setattr(pk, "use_pallas", lambda n, dtype: True)
+    monkeypatch.setattr(pk, "kernel_here", lambda n, dtype: True)
 
     cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=12, dtype="f32",
                     star_max_mass=3.0, no_massive_star_requirement=True)
@@ -237,8 +237,8 @@ def test_cached_hermite4_with_mass_loss_tracks_uncached():
 def test_hermite4_energy_conserved_with_cache():
     """The P(EC) opening-eval reuse must not degrade energy conservation:
     a massive-star-free cluster stays within the uncached drift bound."""
-    from al26_tpu.ops.nbody import acc_pot_dense
-    from al26_tpu.units import G_INTERNAL
+    from al26.ops.nbody import acc_pot_dense
+    from al26.units import G_INTERNAL
 
     cfg = SimConfig(n=64, rc=1.0, final_time=1.0, seed=17, dtype="f32",
                     integrator="hermite4", star_max_mass=3.0,
@@ -263,7 +263,7 @@ def test_cached_trajectory_matches_uncached():
     cache) matches the uncached trajectory run — with no mass evolution
     the mass-delta correction adds exactly 0.0, so the physics and the
     trajectory rows are identical."""
-    from al26_tpu.sim.step import run_steps_traj, run_steps_traj_cached
+    from al26.sim.step import run_steps_traj, run_steps_traj_cached
 
     cfg = SimConfig(n=64, rc=0.5, final_time=1.0, seed=6, dtype="f32",
                     integrator="leapfrog", leapfrog_n_sub=2,
@@ -273,7 +273,7 @@ def test_cached_trajectory_matches_uncached():
                     interloper_offset_time=0.0,
                     interloper_trajectory=True)
     state, aux, cfg = init_cluster(cfg)
-    from al26_tpu.sim.step import fresh_cache
+    from al26.sim.step import fresh_cache
 
     cache = fresh_cache(state, cfg, "leapfrog")
     s_c, _, rows_c = run_steps_traj_cached(state, cache, aux, cfg, 10,
@@ -291,7 +291,7 @@ def test_cached_trajectory_matches_uncached():
     import os
     import tempfile
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as d:
@@ -309,14 +309,14 @@ def test_cached_trajectory_matches_uncached():
 # the correction's VALUES are covered by the default force-cache tests
 def test_mass_delta_correction_memory_bounded_at_2e5():
     """The compiled correction's temporaries stay bounded at the scale
-    that OOMed a 16 GB v5e before row-chunking (N=204800, M=1655: the
+    that ran out of memory before row-chunking (N=204800, M=1655: the
     dense path compiled 10.1 GB of [N,M,3] broadcast temporaries, the
     auto-chunked one 0.26 GB — docs/validation.md). Pins the auto
     threshold against regression via the compiled program's own memory
     analysis (no execution)."""
     import jax
 
-    from al26_tpu.ops.nbody import mass_delta_correction
+    from al26.ops.nbody import mass_delta_correction
 
     n, m = 204800, 1655
     sds = jax.ShapeDtypeStruct

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.ops.nbody import (
+from al26.ops.nbody import (
     acc_jerk_pot_chunked,
     acc_jerk_pot_dense,
     acc_pot_dense,
@@ -15,9 +15,9 @@ from al26_tpu.ops.nbody import (
     total_energy,
     virial_radius,
 )
-from al26_tpu.ops.integrators import hermite4_advance, leapfrog_advance
-from al26_tpu.units import G_INTERNAL
-from al26_tpu.models.plummer import plummer_positions_velocities
+from al26.ops.integrators import hermite4_advance, leapfrog_advance
+from al26.units import G_INTERNAL
+from al26.models.plummer import plummer_positions_velocities
 
 
 def _numpy_brute_force(pos, mass, eps2, g):
@@ -77,7 +77,7 @@ def test_jerk_is_time_derivative_of_acc():
 
 def _kepler_two_body(e=0.5):
     """Two-body problem in internal units: m1=1, m2=1e-3 Msun, a=100 AU."""
-    from al26_tpu.units import AU_TO_PC
+    from al26.units import AU_TO_PC
     a = 100 * AU_TO_PC
     m1, m2 = 1.0, 1e-3
     mu = G_INTERNAL * (m1 + m2)
@@ -180,7 +180,7 @@ def test_hermite_block_matches_shared_adaptive():
     """Two-group block-timestep Hermite tracks the shared-adaptive
     integrator on a softened Plummer sphere with an injected tight pair
     (the case that forces the shared step down)."""
-    from al26_tpu.ops.integrators import hermite4_block_advance
+    from al26.ops.integrators import hermite4_block_advance
 
     rng = np.random.default_rng(11)
     n = 128
@@ -216,7 +216,7 @@ def test_hermite_block_matches_shared_adaptive():
 
 
 def test_hermite_block_energy_conservation():
-    from al26_tpu.ops.integrators import hermite4_block_advance
+    from al26.ops.integrators import hermite4_block_advance
 
     rng = np.random.default_rng(12)
     n = 96

@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from al26_tpu.models import imf
-from al26_tpu.models.plummer import plummer_positions_velocities
-from al26_tpu.models.fractal import fractal_positions_velocities
-from al26_tpu.models.discs import draw_disk_lifetimes
-from al26_tpu.ops.nbody import kinetic_energy, potential_energy, virial_radius
-from al26_tpu.units import G_INTERNAL
+from al26.models import imf
+from al26.models.plummer import plummer_positions_velocities
+from al26.models.fractal import fractal_positions_velocities
+from al26.models.discs import draw_disk_lifetimes
+from al26.ops.nbody import kinetic_energy, potential_energy, virial_radius
+from al26.units import G_INTERNAL
 
 import jax.numpy as jnp
 
@@ -79,7 +79,7 @@ def test_fractal_cluster_basic():
     ke = float(kinetic_energy(jnp.asarray(vel), mass))
     pe = float(potential_energy(jnp.asarray(pos), mass))
     assert abs(-ke / pe - 0.5) < 0.05
-    from al26_tpu.ops.nbody import virial_radius
+    from al26.ops.nbody import virial_radius
 
     rv = float(virial_radius(jnp.asarray(pos), mass))
     assert abs(rv - rc) < 0.02 * rc

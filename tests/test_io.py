@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-from al26_tpu.io import ubjson
-from al26_tpu.io.compression import compress, decompress
+from al26.io import ubjson
+from al26.io.compression import compress, decompress
 
 
 # ---------------------------------------------------------------------------
@@ -96,8 +96,8 @@ def test_compression_roundtrip():
 # Yields store
 # ---------------------------------------------------------------------------
 def _small_run(tmp_path, n=48, seed=21, t_f=1.0, **kw):
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -130,7 +130,7 @@ def test_yields_files_and_csv_format(tmp_path):
 
 
 def test_yields_roundtrip(tmp_path):
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     res = _small_run(tmp_path)
     y = Yields("reload")
@@ -144,8 +144,8 @@ def test_yields_roundtrip(tmp_path):
 
 
 def test_checkpoint_roundtrip_state(tmp_path):
-    from al26_tpu.io.checkpoint import load_state, most_recent_checkpoint
-    from al26_tpu.units import msol, myr, pc
+    from al26.io.checkpoint import load_state, most_recent_checkpoint
+    from al26.units import msol, myr, pc
 
     res = _small_run(tmp_path)
     base = os.path.join(tmp_path, "testrun")
@@ -169,8 +169,8 @@ def test_checkpoint_roundtrip_state(tmp_path):
 def test_resume_continues_identically(tmp_path):
     """Resume mid-run must reproduce the uninterrupted trajectory
     (al26_nbody.py:1647-1656 reload path)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -181,7 +181,7 @@ def test_resume_continues_identically(tmp_path):
 
         # rerun to checkpoint 3 only, then resume
         cfg2 = cfg.replace(filename="part", final_time=1.0)
-        from al26_tpu.sim import init_cluster, run_steps
+        from al26.sim import init_cluster, run_steps
         state, aux, cfg2 = init_cluster(cfg2)
         # drive to 12 steps (checkpoint cadence 4) via driver on a shorter
         # horizon: simpler — run the full driver, then reload from an
@@ -210,8 +210,8 @@ def test_resume_extends_final_time(tmp_path):
     into the stored args so the NEXT resume continues it."""
     import pytest
 
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -269,7 +269,7 @@ def test_resume_extends_final_time(tmp_path):
         assert res_nd.cfg.dt == cfg_nd.dt  # bitwise, no approx
         assert res_nd.cfg.n_plot == 7
         # and the NEXT resume restores the same grid from the stored args
-        from al26_tpu.sim.driver import load_run
+        from al26.sim.driver import load_run
         _, _, cfg_nd2, _, _, _ = load_run("nd")
         assert cfg_nd2.dt == cfg_nd.dt
 
@@ -287,7 +287,7 @@ def test_cli_maps_t_f_to_extension_on_reload():
     """config_from_args: an explicit -t_f alongside -r becomes
     extend_final_time; a bare -r continues the stored schedule (no
     silent re-default to 10 Myr); cold starts default to 10."""
-    from al26_tpu.cli import build_parser, config_from_args
+    from al26.cli import build_parser, config_from_args
 
     p = build_parser()
     cfg = config_from_args(p.parse_args(["-r", "x", "-t_f", "20"]))
@@ -306,7 +306,7 @@ class _RefLikeClass:
 def test_tolerant_unpickler_reference_like_file(tmp_path):
     """A pickle whose classes live in modules we don't have (AMUSE,
     al26_nbody) must still load via class stubbing."""
-    from al26_tpu.io.compat import tolerant_loads
+    from al26.io.compat import tolerant_loads
 
     obj = _RefLikeClass()
     obj.number = [1.0, 2.0, 3.0]
@@ -327,9 +327,9 @@ def test_tolerant_unpickler_reference_like_file(tmp_path):
 
 
 def test_cluster_particles_mapping_roundtrip():
-    from al26_tpu.config import SimConfig
-    from al26_tpu.io.compat import cluster_to_particles, particles_to_cluster
-    from al26_tpu.sim import init_cluster
+    from al26.config import SimConfig
+    from al26.io.compat import cluster_to_particles, particles_to_cluster
+    from al26.sim import init_cluster
     import dataclasses
 
     cfg = SimConfig(n=20, rc=1.0, seed=2, no_massive_star_requirement=True)
@@ -451,7 +451,7 @@ def test_yields_frames_match_blob(tmp_path):
     """A frames-mode run writes the framed store at every save plus the
     reference blob at the final save; both must decode to identical
     content."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     _small_run(tmp_path)  # yields_frames defaults on
     base = os.path.join(tmp_path, "testrun")
@@ -469,7 +469,7 @@ def test_yields_frames_match_blob(tmp_path):
 
 
 def test_yields_frames_torn_tail_is_dropped(tmp_path):
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     _small_run(tmp_path)
     path = os.path.join(tmp_path, "testrun-yields.ubjf")
@@ -485,7 +485,7 @@ def test_yields_frames_torn_tail_is_dropped(tmp_path):
 def test_yields_frames_resume_prefers_frames(tmp_path):
     """Mid-run state + frames only (no blob yet): resume must reconstruct
     the store from frames. Simulates a crash by deleting the final blob."""
-    from al26_tpu.io.checkpoint import load_checkpoint
+    from al26.io.checkpoint import load_checkpoint
 
     _small_run(tmp_path)
     base = os.path.join(tmp_path, "testrun")
@@ -507,7 +507,7 @@ def test_yields_frames_rerun_in_place(tmp_path):
     the stale framed file, not append to it (advisor round-2 medium
     finding): otherwise resume/plotting silently read the previous run's
     snapshots prepended to the new series."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     _small_run(tmp_path, seed=21)
     _small_run(tmp_path, seed=22)  # same base name, fresh run
@@ -524,9 +524,9 @@ def test_bounded_store_streams_identical_blob(tmp_path):
     """VERDICT r2 item 2: a bounded (frames-mode) store retains only the
     latest per-star snapshot in RAM, and its streamed blob reconstruction
     decodes IDENTICALLY to the unbounded in-memory marinate."""
-    from al26_tpu.io.yields_store import _SERIES, Yields
-    from al26_tpu.io import ubjson
-    from al26_tpu.io.compression import decompress
+    from al26.io.yields_store import _SERIES, Yields
+    from al26.io import ubjson
+    from al26.io.compression import decompress
 
     base_b = os.path.join(tmp_path, "bounded")
     base_u = os.path.join(tmp_path, "unbounded")
@@ -584,7 +584,7 @@ def _feed_one(store, k, n_star=5):
 def test_truncate_frames_drops_stale_tail(tmp_path):
     """Resume from an earlier checkpoint: frames after the resume time are
     removed from both the store and the file."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     base = os.path.join(tmp_path, "t")
     frames = base + "-yields.ubjf"
@@ -608,7 +608,7 @@ def test_truncate_frames_drops_stale_tail(tmp_path):
 def test_backfill_frames_seeds_full_history(tmp_path):
     """A blob-only (reference-written) resume seeds the framed file from
     the restored history so bounded mode sees the complete series."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     base = os.path.join(tmp_path, "bf")
     y = Yields(base)
@@ -624,7 +624,7 @@ def test_backfill_frames_seeds_full_history(tmp_path):
 
 
 def test_read_yields_accepts_frames(tmp_path):
-    from al26_tpu.plotting.lib import read_yields
+    from al26.plotting.lib import read_yields
 
     _small_run(tmp_path)
     base = os.path.join(tmp_path, "testrun")
@@ -640,7 +640,7 @@ def test_truncate_frames_removes_torn_tail_on_resume(tmp_path):
     truncated before new frames are appended — otherwise every later read
     (and the final streamed blob) hits the garbage bytes (round-3 review
     finding)."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     base = os.path.join(tmp_path, "tt")
     frames = base + "-yields.ubjf"
@@ -662,8 +662,8 @@ def test_truncate_frames_removes_torn_tail_on_resume(tmp_path):
     assert again.time == pytest.approx([0.0, 0.1, 0.2, 0.3, 0.4])
     blob = base + ".ubj.zst"
     loaded.marinate(blob, frames_path=frames)  # streamed blob sees 5 too
-    from al26_tpu.io import ubjson
-    from al26_tpu.io.compression import decompress
+    from al26.io import ubjson
+    from al26.io.compression import decompress
 
     with open(blob, "rb") as f:
         d = ubjson.loadb(decompress(f.read()))
@@ -674,15 +674,15 @@ def test_blob_only_resume_truncates_future_before_backfill(tmp_path):
     """Resuming a blob-only (rewrite-mode / reference-written) run from an
     EARLIER checkpoint must not seed the framed file with the blob's
     future snapshots (round-3 review finding)."""
-    from al26_tpu.io.checkpoint import load_checkpoint
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.checkpoint import load_checkpoint
+    from al26.io.yields_store import Yields
 
     _small_run(tmp_path, yields_frames=False)  # blob-only, 7 saves to t=1
     base = os.path.join(tmp_path, "testrun")
     _, _, yields, md = load_checkpoint(base, 3)
     assert len(yields.time) == 7  # blob holds the whole history
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import _bound_resumed_yields
+    from al26.config import SimConfig
+    from al26.sim.driver import _bound_resumed_yields
 
     cfg = SimConfig(n=48, rc=0.5, final_time=1.0, yields_frames=True)
     t_resume = yields.time[3]
@@ -701,7 +701,7 @@ def test_truncate_csv_keeps_f32_boundary_row(tmp_path):
     truncate_csv's tolerance must cover that quantisation or the boundary
     row at the resume time itself is dropped on ~half of f32 resumes
     (round-3 review finding); genuinely stale rows sit a full dt above."""
-    from al26_tpu.io.yields_store import Yields
+    from al26.io.yields_store import Yields
 
     y = Yields(str(tmp_path / "f32b"))
     path = f"{y.filename}-cluster-yields.csv"
@@ -721,8 +721,8 @@ def test_resume_truncates_stale_csv_rows(tmp_path):
     """Resume from an earlier checkpoint must drop the CSV's future rows
     before the re-simulated run appends fresh ones (round-3 review
     finding; the frames file and blob already truncate)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -745,8 +745,8 @@ def test_resume_path_qualified_stays_in_place(tmp_path):
     into out/ (round-3 review: base was metadata.filename — the bare
     original name — so a path-qualified resume split the run's artifacts
     across two directories and skipped frames truncation)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     out = tmp_path / "out"
     out.mkdir()
@@ -771,9 +771,9 @@ def test_rewrite_mode_nc_resume_blob_monotonic(tmp_path):
     resume must drop the future snapshots from the in-memory store too,
     or update_state appends the re-simulated ones after them and every
     marinate writes a non-monotonic time series (round-3 review)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.io.yields_store import Yields
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.io.yields_store import Yields
+    from al26.sim.driver import run
 
     _small_run(tmp_path, yields_frames=False)
     cwd = os.getcwd()
@@ -795,8 +795,8 @@ def test_no_duplicate_final_snapshot(tmp_path):
     n_steps — the driver must not append a SECOND t_f snapshot; and a
     resume of an already-complete run takes zero steps and must not
     append one either (round-3 review)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -824,8 +824,8 @@ def test_nc_resume_drops_stale_state_files(tmp_path):
     new timeline (round-3 review)."""
     import shutil
 
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     _small_run(tmp_path)
     base = os.path.join(tmp_path, "testrun")
@@ -847,8 +847,8 @@ def test_trajectory_file_reset_on_rerun_and_resume(tmp_path):
     CSV: a cold rerun in the same cwd starts fresh, and a -nc resume drops
     rows at/after the resumed time (each row carries the PREVIOUS step's
     time, so the boundary row is re-emitted by the resumed run)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     kw = dict(n=24, rc=0.5, final_time=0.2, seed=6,
               filename="tr", n_plot=4, steps_per_plot=5,
@@ -882,9 +882,9 @@ def test_interloper_resume_keeps_depositing(tmp_path):
     carry AGB=None and silently stop depositing; our resume rebuilds the
     AGB wind tables from the restored config (_rebuild_aux). See
     docs/MIGRATION.md \"Resume\"."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
-    from al26_tpu.units import msol
+    from al26.config import SimConfig
+    from al26.sim.driver import run
+    from al26.units import msol
 
     kw = dict(n=24, rc=0.5, final_time=0.2, seed=6,
               filename="ir", n_plot=4, steps_per_plot=5,
@@ -903,7 +903,7 @@ def test_interloper_resume_keeps_depositing(tmp_path):
         # checkpoints 1 and 2 for this fixture); the AGB channel must
         # still be GROWING afterwards (the reference's would freeze here)
         res = run(SimConfig(reload="ir", n_checkpoint=1), progress=False)
-        from al26_tpu.io.checkpoint import load_checkpoint
+        from al26.io.checkpoint import load_checkpoint
 
         parts, _, _, _ = load_checkpoint("ir", 1)
         agb_at_resume = (np.asarray(parts.mass_26al_agb_raw.value_in(msol))
@@ -919,8 +919,8 @@ def test_particles_index_bounds():
     """Particles integer indexing supports negatives but RAISES on
     out-of-range instead of silently wrapping to a wrong star
     (round-3 review finding)."""
-    from al26_tpu.io.compat import Particles
-    from al26_tpu.units import msol
+    from al26.io.compat import Particles
+    from al26.units import msol
 
     p = Particles({"mass": np.asarray([1.0, 2.0, 3.0])})
     assert p[-1].mass.value_in(msol) == 3.0
@@ -938,7 +938,7 @@ def test_ubjson_unsigned_bool_bytes():
     uint64 arrays above the signed range wrapped NEGATIVE through the
     typed-array astype; np.bool_ scalars raised TypeError; bytes decoded
     as a list of ints instead of py-ubjson's bytes semantics."""
-    from al26_tpu.io.ubjson import (
+    from al26.io.ubjson import (
         _native, dumpb, dumpb_python, loadb, loadb_python,
     )
 
@@ -966,8 +966,8 @@ def test_rewrite_rerun_clears_stale_frames_file(tmp_path):
     prefer ANY frames file, restoring the OLD run's yields history on
     resume — round-3 review finding), and the preference is additionally
     gated on the checkpoint's own yields_frames arg."""
-    from al26_tpu.io.checkpoint import load_checkpoint
-    from al26_tpu.io.yields_store import _FRAMES_MAGIC
+    from al26.io.checkpoint import load_checkpoint
+    from al26.io.yields_store import _FRAMES_MAGIC
 
     _small_run(tmp_path, seed=31, yields_frames=True)
     base = os.path.join(tmp_path, "testrun")

@@ -5,9 +5,9 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim.init import _draw_kicks, build_aux, init_cluster
-from al26_tpu.sim.step import physics_after_advance
+from al26.config import SimConfig
+from al26.sim.init import _draw_kicks, build_aux, init_cluster
+from al26.sim.step import physics_after_advance
 
 
 def _state_with_massive(cfg, m_star=20.0):
@@ -28,7 +28,7 @@ def _state_with_massive(cfg, m_star=20.0):
 
 
 def test_natal_kick_applied_exactly_once():
-    from al26_tpu.models.stellar import evolution as st
+    from al26.models.stellar import evolution as st
 
     cfg = SimConfig(n=16, rc=0.5, final_time=10.0, seed=11,
                     star_min_mass=0.1, star_max_mass=3.0,
@@ -59,7 +59,7 @@ def test_natal_kick_applied_exactly_once():
 
 
 def test_natal_kicks_off_is_reference_parity():
-    from al26_tpu.models.stellar import evolution as st
+    from al26.models.stellar import evolution as st
 
     cfg = SimConfig(n=16, rc=0.5, final_time=10.0, seed=11,
                     star_min_mass=0.1, star_max_mass=3.0,
@@ -83,7 +83,7 @@ def test_kick_draw_deterministic_and_maxwellian():
     k2 = _draw_kicks(cfg, 4000)
     np.testing.assert_array_equal(k1, k2)
     # per-component dispersion ~ sigma (pc/Myr units)
-    from al26_tpu.units import KMS_TO_PCMYR
+    from al26.units import KMS_TO_PCMYR
     sigma = 265.0 * KMS_TO_PCMYR
     assert abs(k1.std() - sigma) / sigma < 0.05
     # independent of the main IC stream: different seed -> different kicks
@@ -102,7 +102,7 @@ def test_cold_init_and_resume_aux_agree_on_kicks():
 
 
 def test_kick_disables_hermite_block_cache_only():
-    from al26_tpu.sim.step import _cacheable
+    from al26.sim.step import _cacheable
 
     cfg_lf = SimConfig(n=9000, integrator="leapfrog", natal_kicks=True,
                        dtype="f32")
@@ -125,8 +125,8 @@ def test_no_massive_star_cluster_never_fires_sn():
     both the cold-init and the resume (build_aux) constructions."""
     import numpy as np
 
-    from al26_tpu.sim import init_cluster, run_steps
-    from al26_tpu.sim.init import build_aux
+    from al26.sim import init_cluster, run_steps
+    from al26.sim.init import build_aux
 
     cfg = SimConfig(n=24, rc=0.5, final_time=1.0, seed=4, dtype="f32",
                     star_max_mass=3.0, no_massive_star_requirement=True,

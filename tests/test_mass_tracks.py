@@ -19,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.models.stellar import evolution as st
-from al26_tpu.models.stellar import hurley2000, lc18_anchors, seba_anchors
+from al26.config import SimConfig
+from al26.models.stellar import evolution as st
+from al26.models.stellar import hurley2000, lc18_anchors, seba_anchors
 from test_stellar_yields import _independent_lc18_sums
 
 REF_TARBALL = "/root/reference/limongi-2006.tar.gz"
@@ -186,7 +186,7 @@ def test_seba_requires_solar_z():
     with pytest.raises(ValueError, match="seba"):
         st.m_presn(jnp.asarray(20.0), z=0.002, tracks="seba")
     with pytest.raises(ValueError, match="seba"):
-        from al26_tpu.sim.init import init_cluster
+        from al26.sim.init import init_cluster
         init_cluster(SimConfig(n=8, metallicity=0.002, mass_tracks="seba",
                                no_massive_star_requirement=True))
 
@@ -204,8 +204,8 @@ def test_parity_mode_resolves_seba_tracks_at_init():
     (sim.init.init_cluster), so library callers get the
     reference-outcome combination too, not just argparse users; an
     explicit family always wins (rule-parity stays reachable)."""
-    from al26_tpu.cli import build_parser, config_from_args
-    from al26_tpu.sim.init import init_cluster
+    from al26.cli import build_parser, config_from_args
+    from al26.sim.init import init_cluster
 
     args = build_parser().parse_args(["-n", "100", "-rc", "1.0",
                                       "--sn_parity_mode"])
@@ -251,7 +251,7 @@ def test_parity_mode_resolves_seba_tracks_at_init():
 # End-to-end: a parity-mode supernova actually fires with seba tracks
 # ---------------------------------------------------------------------------
 def _small_parity_state(tracks: str):
-    from al26_tpu.sim.init import build_aux, init_cluster
+    from al26.sim.init import build_aux, init_cluster
 
     cfg = SimConfig(n=24, rc=0.5, final_time=12.0, seed=5, dtype="f64",
                     no_massive_star_requirement=True, sn_parity_mode=True,
@@ -280,8 +280,8 @@ def _small_parity_state(tracks: str):
 # slow lane (round-5 re-tier): two full 10 Myr outcome runs (resolution + rule-parity stay default; the slow golden suite pins the seba SN outcome bit-exactly)
 @pytest.mark.slow
 def test_parity_sn_fires_with_seba_and_not_with_lc18():
-    from al26_tpu.sim.step import run_steps
-    from al26_tpu.state import CH_SNE
+    from al26.sim.step import run_steps
+    from al26.state import CH_SNE
 
     fired = {}
     for tracks in ("seba", "lc18"):
@@ -301,7 +301,7 @@ def test_seba_parity_resume_roundtrip(tmp_path):
     would diverge immediately through mdot)."""
     import os
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -332,9 +332,9 @@ def test_global_model_yield_threads_mass_tracks():
     """plotting.lib.calc_global_model_yield recomputes wind rates with
     the RUN's track family: seba rates are orders of magnitude below
     lc18's for the same snapshot."""
-    from al26_tpu.io.compat import cluster_to_particles
-    from al26_tpu.plotting.lib import calc_global_model_yield
-    from al26_tpu.sim.init import init_cluster
+    from al26.io.compat import cluster_to_particles
+    from al26.plotting.lib import calc_global_model_yield
+    from al26.sim.init import init_cluster
 
     cfg = SimConfig(n=24, rc=0.5, seed=5, dtype="f64",
                     no_massive_star_requirement=True)
@@ -359,8 +359,8 @@ def test_global_model_yield_threads_mass_tracks():
     assert al_lc.sum() > 50.0 * al_seba.sum()
     # the run's RECORDED cfg threads through metadata= — no need to
     # remember which family the run used (checkpoint args carry it)
-    from al26_tpu.io.compat import Args, Metadata
-    from al26_tpu.plotting.lib import calc_sn_times
+    from al26.io.compat import Args, Metadata
+    from al26.plotting.lib import calc_sn_times
 
     md = Metadata(Args(**cfg.replace(mass_tracks="seba").to_dict()), 10.0)
     al_md, _ = calc_global_model_yield(p, 9.0, 0.01, metadata=md)
@@ -379,8 +379,8 @@ def test_ensemble_parity_seba_sn_fires(tmp_path):
     (a 36 Msun star) collapses directly: its event fires but deposits
     zero (> 25 Msun rows carry zero SN yield, al26_nbody.py:945-967) —
     per-realization seeds thread through to distinct outcomes."""
-    from al26_tpu.sim.driver import run_ensemble
-    from al26_tpu.state import CH_SNE
+    from al26.sim.driver import run_ensemble
+    from al26.state import CH_SNE
 
     cfg = SimConfig(n=64, rc=1.0, final_time=10.0, seed=0, ensemble=2,
                     n_plot=2, steps_per_plot=5, sn_parity_mode=True)
@@ -399,7 +399,7 @@ def test_ensemble_parity_seba_sn_fires(tmp_path):
 # superset for the lc18_vel0/150 track families)
 # ---------------------------------------------------------------------------
 def test_read_slrs_vel_selection():
-    from al26_tpu.models.yields import read_slrs
+    from al26.models.yields import read_slrs
 
     s300 = read_slrs(feh=0, vel=300)
     s0 = read_slrs(feh=0, vel=0)
@@ -420,7 +420,7 @@ def test_vel0_yields_match_independent_raw_parse():
     applied to the non-rotating set)."""
     import re
 
-    from al26_tpu.models.yields import DATA_DIR, _read_yield_table
+    from al26.models.yields import DATA_DIR, _read_yield_table
 
     raw = os.path.join(DATA_DIR, "limongi_chieffi_2018", "raw")
     row = re.compile(r"^\s*(\d+)\s+(-?\d+)\s+(\S+)\s+(.*)$")
@@ -452,7 +452,7 @@ def test_init_cluster_uses_yields_vel():
                      no_massive_star_requirement=True)
 
     def ratios(cfg):
-        from al26_tpu.models.yields import (feh_for_z, massive_star_yields,
+        from al26.models.yields import (feh_for_z, massive_star_yields,
                                             read_slrs)
 
         slrs = read_slrs(feh=feh_for_z(cfg.metallicity),
@@ -464,7 +464,7 @@ def test_init_cluster_uses_yields_vel():
     y0 = ratios(base.replace(yields_vel=0))
     assert y300["wind_ratio_26al"][0] != y0["wind_ratio_26al"][0]
     # end-to-end through init_cluster: both configurations run
-    from al26_tpu.sim.init import init_cluster
+    from al26.sim.init import init_cluster
 
     _, _, resolved = init_cluster(base.replace(yields_vel=0,
                                                mass_tracks="lc18_vel0"))
@@ -522,7 +522,7 @@ def test_seba_anchor_variant_outcome_invariant_end_to_end():
     fires the SAME supernova with the all-events anchor variant swapped
     in — kicked count and a nonzero sne channel match the shipped-anchor
     run's outcomes."""
-    from al26_tpu.sim import init_cluster, run_steps
+    from al26.sim import init_cluster, run_steps
 
     cfg = SimConfig(n=256, rc=1.0, final_time=10.0, seed=18,
                     sn_parity_mode=True)

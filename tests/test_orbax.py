@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.io.orbax_backend import (
+from al26.config import SimConfig
+from al26.io.orbax_backend import (
     latest_step, load_sharded_state, save_sharded_state,
 )
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.step import run_steps
+from al26.sim import init_cluster
+from al26.sim.step import run_steps
 
 
 def test_sharded_roundtrip_preserves_values_and_sharding(tmp_path):
-    from al26_tpu.parallel.sharded import make_mesh, shard_state_rows
+    from al26.parallel.sharded import make_mesh, shard_state_rows
 
     cfg = SimConfig(n=64, rc=0.5, seed=3, no_massive_star_requirement=True)
     state, aux, cfg = init_cluster(cfg)
@@ -42,7 +42,7 @@ def test_sharded_roundtrip_preserves_values_and_sharding(tmp_path):
 
 
 def test_driver_writes_orbax_tree_and_restore_matches_final(tmp_path):
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -71,7 +71,7 @@ def test_orbax_resume_continues_bitwise(tmp_path):
     """Restore a mid-run device state and scan the remaining steps: must
     land bitwise on the uninterrupted final state (same programs, same
     operands — the orbax tree stores the exact device arrays)."""
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)

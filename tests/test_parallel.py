@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.ops.nbody import acc_jerk_pot_dense, potential_energy
-from al26_tpu.parallel.ensemble import (
+from al26.config import SimConfig
+from al26.ops.nbody import acc_jerk_pot_dense, potential_energy
+from al26.parallel.ensemble import (
     ensemble_run_steps, init_ensemble, make_ensemble_mesh, shard_ensemble,
 )
-from al26_tpu.parallel.sharded import (
+from al26.parallel.sharded import (
     make_mesh, make_sharded_force, shard_state_rows, sharded_acc_jerk_pot,
     sharded_potential_energy,
 )
-from al26_tpu.sim import init_cluster, run_steps, step
+from al26.sim import init_cluster, run_steps, step
 
 
 def test_eight_fake_devices():
@@ -77,7 +77,7 @@ def test_ensemble_sharded_run():
 
 
 def test_force_fn_hook_in_integrator():
-    from al26_tpu.ops.integrators import hermite4_advance
+    from al26.ops.integrators import hermite4_advance
 
     rng = np.random.default_rng(1)
     n = 64
@@ -100,7 +100,7 @@ def test_driver_with_mesh_matches_unsharded(tmp_path):
     and matches the single-device trajectory."""
     import os
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -127,7 +127,7 @@ def test_driver_with_mesh_matches_unsharded(tmp_path):
 def test_driver_mesh_divisibility_error(tmp_path):
     import os
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -145,7 +145,7 @@ def test_driver_mesh_divisibility_error(tmp_path):
 def test_ring_force_matches_allgather():
     """The ppermute ring-streamed force equals the all-gather sharded force
     and the dense reference on the 8-device mesh."""
-    from al26_tpu.parallel.ring import make_ring_force, ring_acc_jerk_pot
+    from al26.parallel.ring import make_ring_force, ring_acc_jerk_pot
 
     rng = np.random.default_rng(8)
     n = 256
@@ -161,7 +161,7 @@ def test_ring_force_matches_allgather():
     a3, j3, p3 = acc_jerk_pot_dense(pos, vel, mass, 1e-3)
     np.testing.assert_allclose(np.asarray(a2), np.asarray(a3), rtol=1e-10)
     # integrator hook
-    from al26_tpu.ops.integrators import hermite4_advance
+    from al26.ops.integrators import hermite4_advance
 
     ff = make_ring_force(mesh, mass, 1e-3)
     p_a, v_a = hermite4_advance(pos, vel, mass, jnp.asarray(0.01), eps2=1e-3)
@@ -180,7 +180,7 @@ def test_step_with_ring_force_matches():
     state, aux, cfg = init_cluster(cfg)
     mesh = make_mesh(8)
     s_ref = run_steps(state, aux, cfg, 3)
-    from al26_tpu.parallel.sharded import shard_state_rows
+    from al26.parallel.sharded import shard_state_rows
 
     state_sharded = shard_state_rows(state, mesh)
     s_ring = run_steps(state_sharded, aux, cfg, 3, mesh=mesh,
@@ -194,7 +194,7 @@ def test_ensemble_flat_matches_vmapped():
     """The flattened block-diagonal ensemble step produces trajectories and
     deposition equal to the vmapped per-realization step over a short
     horizon (same physics, different substep sharing/summation order)."""
-    from al26_tpu.parallel.ensemble import ensemble_run_steps
+    from al26.parallel.ensemble import ensemble_run_steps
 
     cfg = SimConfig(n=32, rc=1.0, final_time=10.0, seed=100,
                     integrator="leapfrog", leapfrog_n_sub=4,
@@ -214,7 +214,7 @@ def test_ensemble_flat_no_cross_talk():
     """Block-diagonal masking: realizations must not feel each other's
     gravity — a realization's trajectory is identical whether it runs alone
     or flattened with others."""
-    from al26_tpu.parallel.ensemble import ensemble_run_steps
+    from al26.parallel.ensemble import ensemble_run_steps
 
     cfg = SimConfig(n=32, rc=1.0, final_time=10.0, seed=200,
                     integrator="leapfrog", leapfrog_n_sub=4,
@@ -230,9 +230,9 @@ def test_ensemble_flat_no_cross_talk():
 
 
 def test_ensemble_flat_block_integrator_isolated():
-    """Flat + hermite4_block (the TPU auto path): realizations stay
+    """Flat + hermite4_block (the kernel path): realizations stay
     gravitationally isolated and close to vmapped hermite4 trajectories."""
-    from al26_tpu.parallel.ensemble import ensemble_run_steps
+    from al26.parallel.ensemble import ensemble_run_steps
 
     cfg = SimConfig(n=32, rc=1.0, final_time=10.0, seed=300, k_fast=8,
                     integrator="hermite4_block",
@@ -252,8 +252,8 @@ def test_ensemble_flat_block_integrator_isolated():
 def test_traj_run_carries_mesh():
     """run_steps_traj with a mesh (review regression: the trajectory path
     silently dropped the sharded force) matches run_steps."""
-    from al26_tpu.sim import run_steps_traj
-    from al26_tpu.parallel.sharded import shard_state_rows
+    from al26.sim import run_steps_traj
+    from al26.parallel.sharded import shard_state_rows
 
     cfg = SimConfig(n=64, rc=0.5, final_time=2.0, seed=5, interloper=True,
                     interloper_mass=3.0, interloper_velocity=20.0,
@@ -300,7 +300,7 @@ def test_ensemble_resume_roundtrip(tmp_path):
 
     import numpy as np
 
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=77, ensemble=2,
                     n_plot=2, steps_per_plot=5,
@@ -330,7 +330,7 @@ def test_ensemble_resume_extends_final_time(tmp_path):
 
     import numpy as np
 
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=77, ensemble=2,
                     n_plot=2, steps_per_plot=5,
@@ -363,8 +363,8 @@ def test_mesh_cached_one_sweep_per_step(monkeypatch):
     sharded_potential_energy pass), and the opening evaluation comes from
     the cache — counted by tracing run_steps with instrumented per-shard
     sweeps (everything funnels through parallel.sharded)."""
-    import al26_tpu.parallel.sharded as shd
-    from al26_tpu.sim.step import _cacheable
+    import al26.parallel.sharded as shd
+    from al26.sim.step import _cacheable
 
     counter = {"n": 0}
     pots = {"n": 0}
@@ -382,7 +382,7 @@ def test_mesh_cached_one_sweep_per_step(monkeypatch):
     monkeypatch.setattr(shd, "_local_rows_force", counting)
     monkeypatch.setattr(shd, "sharded_potential_energy", counting_pot)
 
-    from al26_tpu.sim.step import _step_impl, fresh_cache
+    from al26.sim.step import _step_impl, fresh_cache
 
     cfg = SimConfig(n=64, rc=1.0, final_time=10.0, seed=23021,
                     integrator="hermite4_block", k_fast=16)
@@ -432,8 +432,8 @@ def test_mesh_cached_matches_uncached():
 def test_sharded_force_rows_matches_dense():
     """make_sharded_force_rows (replicated rows x sharded columns + psum)
     equals the dense row-subset force."""
-    from al26_tpu.ops.nbody import _row_block_acc_jerk_pot
-    from al26_tpu.parallel.sharded import make_sharded_force_rows
+    from al26.ops.nbody import _row_block_acc_jerk_pot
+    from al26.parallel.sharded import make_sharded_force_rows
 
     rng = np.random.default_rng(5)
     n, k = 64, 8
@@ -445,7 +445,7 @@ def test_sharded_force_rows_matches_dense():
     mesh = make_mesh(8)
     fn = make_sharded_force_rows(mesh, mass, eps2=0.0)
     a_s, j_s = fn(pr, vr, ids, pos, vel)
-    from al26_tpu.units import G_INTERNAL
+    from al26.units import G_INTERNAL
 
     a_d, j_d, _ = _row_block_acc_jerk_pot(pr, vr, pos, vel, mass, 0.0,
                                           G_INTERNAL, ids)
@@ -459,7 +459,7 @@ def test_mesh_block_integrator_uses_sharded_rows(monkeypatch):
     """hermite4_block under a mesh routes its subcycle through the
     column-sharded rows function (no dense fallback), and matches the
     unsharded block integrator."""
-    import al26_tpu.parallel.sharded as shd
+    import al26.parallel.sharded as shd
 
     made = {"n": 0}
     real = shd.make_sharded_force_rows
@@ -491,8 +491,8 @@ def test_ring_cached_matches_sharded_cached():
     ppermute-streamed sweep per step carrying the cross-step cache; it
     must track the all-gather sharded cached path to summation-order
     round-off, with no separate potential sweep."""
-    import al26_tpu.parallel.sharded as shd
-    from al26_tpu.sim.step import _cacheable
+    import al26.parallel.sharded as shd
+    from al26.sim.step import _cacheable
 
     cfg = SimConfig(n=64, rc=1.0, final_time=10.0, seed=37)
     state, aux, cfg = init_cluster(cfg)
@@ -513,9 +513,9 @@ def test_ring_cached_matches_sharded_cached():
 def test_ring_one_sweep_per_step(monkeypatch):
     """Eager per-step accounting for the ring path, mirroring
     test_mesh_cached_one_sweep_per_step."""
-    import al26_tpu.parallel.ring as ring
-    import al26_tpu.parallel.sharded as shd
-    from al26_tpu.sim.step import _step_impl, fresh_cache
+    import al26.parallel.ring as ring
+    import al26.parallel.sharded as shd
+    from al26.sim.step import _step_impl, fresh_cache
 
     sweeps = {"n": 0}
     pots = {"n": 0}
@@ -568,10 +568,10 @@ def test_ensemble_force_cache_flag_honored(monkeypatch):
     """force_cache=False (the documented opt-out) must disable the flat
     ensemble's cache gate exactly like sim.step._cacheable does for
     single runs (round-3 review finding)."""
-    import al26_tpu.ops.pallas_nbody as pk
-    from al26_tpu.parallel.ensemble import ensemble_cacheable
+    import al26.ops.backend as pk
+    from al26.parallel.ensemble import ensemble_cacheable
 
-    monkeypatch.setattr(pk, "use_pallas", lambda n, dtype: True)
+    monkeypatch.setattr(pk, "kernel_here", lambda n, dtype: True)
     cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=5, dtype="f32",
                     integrator="leapfrog", leapfrog_n_sub=2,
                     no_massive_star_requirement=True)
@@ -586,12 +586,12 @@ def test_ensemble_cache_threads_across_chunks(monkeypatch):
     it every chunk re-paid a fresh opening sweep)."""
     import numpy as np
 
-    import al26_tpu.ops.pallas_nbody as pk
-    from al26_tpu.parallel.ensemble import (
+    import al26.ops.backend as pk
+    from al26.parallel.ensemble import (
         ensemble_fresh_cache, ensemble_run_steps_cached,
     )
 
-    monkeypatch.setattr(pk, "use_pallas", lambda n, dtype: True)
+    monkeypatch.setattr(pk, "kernel_here", lambda n, dtype: True)
     cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=12, dtype="f32",
                     star_max_mass=3.0, no_massive_star_requirement=True)
     bs, ba, cfgs = init_ensemble(cfg, 2)
@@ -617,7 +617,7 @@ def test_ensemble_2d_matches_unsharded():
     each realization's row-sharded sweep (all_gather over ROWS_AXIS only)
     reproduces the dense per-realization forces, and realizations never
     mix across the ens axis."""
-    from al26_tpu.parallel.ensemble import (
+    from al26.parallel.ensemble import (
         ensemble_run_steps, ensemble_run_steps_2d, make_ensemble2d_mesh,
         shard_ensemble_2d,
     )
@@ -640,7 +640,7 @@ def test_ensemble_2d_matches_unsharded():
 
 
 def test_ensemble_2d_rejects_non_leapfrog():
-    from al26_tpu.parallel.ensemble import (
+    from al26.parallel.ensemble import (
         ensemble_step_2d, make_ensemble2d_mesh, shard_ensemble_2d,
     )
 
@@ -663,7 +663,7 @@ def test_driver_ensemble_2d_matches_1d(tmp_path):
     force summation layout differs)."""
     import os
 
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=88, ensemble=2,
                     n_plot=2, steps_per_plot=5,
@@ -685,7 +685,7 @@ def test_driver_ensemble_2d_matches_1d(tmp_path):
 
 
 def test_driver_ensemble_2d_shape_errors(tmp_path):
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=88, ensemble=3,
                     n_plot=1, steps_per_plot=5, mesh_shape=(2, 4),
@@ -706,7 +706,7 @@ def test_ensemble_2d_cached_matches_uncached():
     runs agree to summation-order tolerance; threading the cache across
     two chunks equals one chunk of the total length (the driver's
     checkpoint-boundary threading)."""
-    from al26_tpu.parallel.ensemble import (
+    from al26.parallel.ensemble import (
         ensemble2d_fresh_cache, ensemble_run_steps_2d,
         ensemble_run_steps_2d_cached, make_ensemble2d_mesh,
         shard_ensemble_2d,
@@ -745,7 +745,7 @@ def test_driver_ensemble_2d_resume(tmp_path):
     different summation order, so agreement is to ~ulp, not bitwise."""
     import os
 
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=77, ensemble=2,
                     n_plot=2, steps_per_plot=5, mesh_shape=(2, 4))
@@ -769,7 +769,7 @@ def test_driver_ensemble_2d_interloper_star_count(tmp_path):
     """With --interloper the per-realization star count is cfg.n + 1; the
     2-D rows axis must shard THAT (a cfg.n-based divisibility gate would
     wrongly reject n=31 / accept n=32 and then crash in shard_map)."""
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=31, rc=0.5, final_time=0.5, seed=21, ensemble=2,
                     n_plot=1, steps_per_plot=5, interloper=True,
@@ -807,7 +807,7 @@ def test_ensemble_2d_design_point_one_fused_sweep_per_step(monkeypatch):
         potential recovery paid per substep).
 
     Physics at the design point matches the dense vmapped ensemble."""
-    import al26_tpu.parallel.ensemble as ens
+    import al26.parallel.ensemble as ens
 
     cfg = SimConfig(n=256, rc=1.0, final_time=10.0, seed=9)
     bs, ba, cfgs = init_ensemble(cfg, 2)
@@ -858,7 +858,7 @@ def test_ensemble_2d_design_point_one_fused_sweep_per_step(monkeypatch):
 def test_run_ensemble_rejects_perf_ladder_flags(tmp_path):
     """The opt-in perf ladder is a single-run capability; an explicit
     opt-in must raise instead of being silently dropped (ADVICE r3)."""
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=1, ensemble=2,
                     n_plot=1, steps_per_plot=5,
@@ -871,7 +871,7 @@ def test_run_ensemble_rejects_perf_ladder_flags(tmp_path):
 
 
 def test_make_ensemble2d_mesh_validates_device_count():
-    from al26_tpu.parallel.ensemble import make_ensemble2d_mesh
+    from al26.parallel.ensemble import make_ensemble2d_mesh
 
     with pytest.raises(ValueError, match="devices"):
         make_ensemble2d_mesh(4, 4)   # 16 > the fake mesh's 8
@@ -880,7 +880,36 @@ def test_make_ensemble2d_mesh_validates_device_count():
 def test_make_ensemble2d_mesh_rejects_degenerate_rows():
     """n_rows defaults to len(devices) // n_ens: more realizations than
     devices must raise, not return an empty Mesh."""
-    from al26_tpu.parallel.ensemble import make_ensemble2d_mesh
+    from al26.parallel.ensemble import make_ensemble2d_mesh
 
     with pytest.raises(ValueError, match="degenerate"):
         make_ensemble2d_mesh(16)  # 8 fake devices -> n_rows = 0
+
+
+def test_ensemble_flat_kernel_per_device_under_mesh(monkeypatch):
+    """With the batch sharded over an ensemble mesh, the flat kernel path
+    sweeps each device's own realizations (shard_map) and matches the
+    unsharded run."""
+    import numpy as np
+
+    import al26.ops.backend as pk
+    from al26.parallel.ensemble import (
+        ensemble_fresh_cache, ensemble_run_steps_cached, make_ensemble_mesh,
+        shard_ensemble,
+    )
+
+    monkeypatch.setattr(pk, "kernel_here", lambda n, dtype: True)
+    cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=21, dtype="f32",
+                    star_max_mass=3.0, no_massive_star_requirement=True)
+    bs, ba, cfgs = init_ensemble(cfg, 8)
+    cfg = cfgs[0]
+    s1, _ = ensemble_run_steps_cached(bs, ensemble_fresh_cache(bs, cfg), ba,
+                                      cfg, 2)
+    mesh = make_ensemble_mesh(8)
+    bs8, ba8 = shard_ensemble(bs, ba, mesh)
+    s8, _ = ensemble_run_steps_cached(
+        bs8, ensemble_fresh_cache(bs8, cfg, mesh), ba8, cfg, 2, mesh)
+    assert len(s8.cluster.pos.sharding.device_set) == 8
+    np.testing.assert_allclose(np.asarray(s8.cluster.pos),
+                               np.asarray(s1.cluster.pos), rtol=0,
+                               atol=1e-5)

@@ -7,8 +7,8 @@ from glob import glob
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim.driver import run
+from al26.config import SimConfig
+from al26.sim.driver import run
 
 
 @pytest.fixture(scope="module")
@@ -30,8 +30,8 @@ def sim_grid(tmp_path_factory):
 
 
 def test_readers(sim_grid):
-    from al26_tpu.plotting import read_state, read_yields
-    from al26_tpu.units import msol, myr
+    from al26.plotting import read_state, read_yields
+    from al26.units import msol, myr
 
     sim = sorted(glob(str(sim_grid) + "/pt-*/pt-*/pt-0/"))[0]
     states = sorted(glob(sim + "*-state-*.zst"))
@@ -44,8 +44,8 @@ def test_readers(sim_grid):
 
 
 def test_disk_final_enrichment(sim_grid):
-    from al26_tpu.plotting import calc_disk_final_enrichment, read_state, read_yields
-    from al26_tpu.units import myr
+    from al26.plotting import calc_disk_final_enrichment, read_state, read_yields
+    from al26.units import myr
 
     sim = sorted(glob(str(sim_grid) + "/pt-*/pt-*/pt-0/"))[0]
     state = read_state(sorted(glob(sim + "*-state-*.zst"))[-1])
@@ -62,7 +62,7 @@ def test_postprocess_pipeline(sim_grid, tmp_path):
     """The full ensemble postprocessor over the mini-grid -> tidy table."""
     import pandas as pd
 
-    from al26_tpu.plotting import postprocess
+    from al26.plotting import postprocess
 
     out = str(tmp_path / "all-sims-ratios.pkl.zst")
     cwd = os.getcwd()
@@ -89,7 +89,7 @@ def test_postprocess_pipeline(sim_grid, tmp_path):
 
 
 def test_sn_times(sim_grid):
-    from al26_tpu.plotting import calc_sn_times, read_state
+    from al26.plotting import calc_sn_times, read_state
 
     sim = sorted(glob(str(sim_grid) + "/pt-*/pt-*/pt-0/"))[0]
     state = read_state(sorted(glob(sim + "*-state-*.zst"))[0])
@@ -101,7 +101,7 @@ def test_sn_times(sim_grid):
 
 
 def test_energy_and_density_diagnostics(sim_grid):
-    from al26_tpu.plotting import (
+    from al26.plotting import (
         calc_cluster_half_mass, calc_dE, calc_etot, calc_local_densities,
         read_state,
     )
@@ -121,8 +121,8 @@ def test_energy_and_density_diagnostics(sim_grid):
 def test_figure_scripts_produce_output(sim_grid, tmp_path):
     """The paper-figure scripts run end-to-end on real sim output."""
     matplotlib = pytest.importorskip("matplotlib")
-    from al26_tpu.plotting import plot_slr_statistics, plot_slr_heating
-    from al26_tpu.plotting import plot_3d_pos, postprocess, box_plot, violin_plot
+    from al26.plotting import plot_slr_statistics, plot_slr_heating
+    from al26.plotting import plot_3d_pos, postprocess, box_plot, violin_plot
 
     simdir = sorted(glob(str(sim_grid) + "/pt-*/pt-*/"))[0]
     cwd = os.getcwd()
@@ -151,8 +151,8 @@ def test_ensemble_driver_grid_layout(tmp_path):
     consumes it end-to-end."""
     import pandas as pd
 
-    from al26_tpu.plotting import postprocess
-    from al26_tpu.sim.driver import run_ensemble
+    from al26.plotting import postprocess
+    from al26.sim.driver import run_ensemble
 
     cfg = SimConfig(n=24, rc=0.5, final_time=0.5, seed=50, ensemble=2,
                     n_plot=2, steps_per_plot=5,
@@ -182,8 +182,8 @@ def test_disk_final_enrichment_matches_perstar_scipy(sim_grid):
 
     from scipy.interpolate import Akima1DInterpolator
 
-    from al26_tpu.plotting import calc_disk_final_enrichment, read_state, read_yields
-    from al26_tpu.units import myr
+    from al26.plotting import calc_disk_final_enrichment, read_state, read_yields
+    from al26.units import myr
 
     sim = sorted(glob(str(sim_grid) + "/pt-*/pt-*/pt-0/"))[0]
     state = read_state(sorted(glob(sim + "*-state-*.zst"))[-1])

@@ -1,6 +1,6 @@
 """The dtype policy's load-bearing claim (docs/precision.md): an f32 run
 reproduces the f64 golden end-state statistics at N=1k within stated
-tolerances — the fast (TPU) path and the reproducible (CPU/f64 golden)
+tolerances — the fast (GPU, f32) path and the reproducible (CPU/f64 golden)
 path describe the same physics."""
 import json
 import os
@@ -12,8 +12,8 @@ import pytest
 # (pyproject addopts); run with `pytest -m slow`
 pytestmark = pytest.mark.slow
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim import init_cluster, run_steps
+from al26.config import SimConfig
+from al26.sim import init_cluster, run_steps
 from golden_stats import N_GOLDEN, SEED_GOLDEN, summarize
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden",

@@ -8,7 +8,7 @@ this test supplies is the runtime environment the scripts expect:
 
   * an `al26_nbody` module exposing State / Metadata / Yields / units —
     satisfied by THIS framework's own compat classes (our checkpoint
-    pickles already reference `al26_tpu.io.compat`, so the reference's
+    pickles already reference `al26.io.compat`, so the reference's
     `pickle.loads`-based read_state resolves them directly);
   * `amuse.units.units` (the script builds `0.0 | units.kg`) — our
     Unit/Quantity shim implements the same algebra;
@@ -17,7 +17,7 @@ this test supplies is the runtime environment the scripts expect:
     dumpb/loadb API) — neither package exists in this environment.
 
 The verbatim run's `all-sims-ratios.pkl.zst` is then compared row-for-row
-against `al26_tpu.plotting.postprocess` over the same pt-grid.
+against `al26.plotting.postprocess` over the same pt-grid.
 """
 import os
 import runpy
@@ -41,8 +41,8 @@ pytestmark = pytest.mark.skipif(
 def sim_grid(tmp_path_factory):
     """Two real runs in the reference pt-grid layout (small but complete:
     every state/yields artifact the reference postprocessor reads)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.driver import run
+    from al26.config import SimConfig
+    from al26.sim.driver import run
 
     root = tmp_path_factory.mktemp("refpp_grid")
     for sim_i in range(2):
@@ -78,8 +78,8 @@ def _numba_stub():
 
 def _amuse_stub():
     """amuse.units.units with the unit objects the reference scripts
-    touch, backed by our Unit algebra (al26_tpu.units)."""
-    import al26_tpu.units as u
+    touch, backed by our Unit algebra (al26.units)."""
+    import al26.units as u
 
     amuse = types.ModuleType("amuse")
     units_pkg = types.ModuleType("amuse.units")
@@ -100,10 +100,10 @@ def _amuse_stub():
 def _al26_nbody_stub():
     """The classes/units the reference scripts import from al26_nbody,
     provided by this framework's own implementations."""
-    import al26_tpu.units as u
-    from al26_tpu.io.compat import Metadata, State
-    from al26_tpu.io.yields_store import Yields
-    from al26_tpu.plotting.lib import get_high_mass_star_indices
+    import al26.units as u
+    from al26.io.compat import Metadata, State
+    from al26.io.yields_store import Yields
+    from al26.plotting.lib import get_high_mass_star_indices
 
     mod = types.ModuleType("al26_nbody")
     mod.State = State
@@ -122,7 +122,7 @@ def reference_env():
     import matplotlib
 
     matplotlib.use("Agg")
-    import al26_tpu.io.ubjson as our_ubjson
+    import al26.io.ubjson as our_ubjson
 
     shims = {"numba": _numba_stub(), "ubjson": our_ubjson,
              "al26_nbody": _al26_nbody_stub(), **_amuse_stub()}
@@ -190,7 +190,7 @@ def test_reference_postprocess_runs_verbatim(sim_grid, reference_env,
         os.chdir(cwd)
 
     # our postprocessor over the same grid
-    from al26_tpu.plotting import postprocess
+    from al26.plotting import postprocess
 
     ours = str(tmp_path / "ours.pkl.zst")
     os.chdir(sim_grid)

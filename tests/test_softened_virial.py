@@ -5,9 +5,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.step import run_steps, step
+from al26.config import SimConfig
+from al26.sim import init_cluster
+from al26.sim.step import run_steps, step
 
 
 @pytest.mark.slow

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.models.stellar import evolution as st
-from al26_tpu.models.yields import (
+from al26.models.stellar import evolution as st
+from al26.models.yields import (
     calc_slr_yield,
     calc_wind_ratio,
     massive_star_yields,
     read_slrs,
 )
-from al26_tpu.models.agb import find_agb, read_agbs
+from al26.models.agb import find_agb, read_agbs
 
 
 def test_lifetimes_monotonic_and_plausible():
@@ -99,7 +99,7 @@ def test_metallicity_yield_selection():
     """cfg.metallicity snaps to the nearest LC18 [Fe/H] grid point and
     selects the matching yield set (superset of the reference's fixed
     solar choice, fit-data.py feh=0)."""
-    from al26_tpu.models.yields import feh_for_z
+    from al26.models.yields import feh_for_z
 
     assert feh_for_z(0.02) == 0
     assert feh_for_z(0.002) == -1
@@ -122,9 +122,9 @@ def test_metallicity_yield_selection():
 def test_init_cluster_uses_metallicity_yields():
     """init_cluster at Z=0.002 must bake the [Fe/H]=-1 wind yields into the
     per-star attributes (sim/init.py read_slrs call)."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.models.yields import calc_slr_yield
-    from al26_tpu.sim import init_cluster
+    from al26.config import SimConfig
+    from al26.models.yields import calc_slr_yield
+    from al26.sim import init_cluster
 
     base = dict(n=64, rc=1.0, final_time=1.0, seed=97, dtype="f32")
     s0, _, _ = init_cluster(SimConfig(**base))
@@ -206,7 +206,7 @@ def test_hurley2000_formula_exactness():
     """The Hurley+2000 eq. (4)-(7) implementation reproduces hand-evaluated
     values of the published formulae (zeta = 0 coefficients) to float
     precision — guards the coefficient table against typos/regressions."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     # independently hand-evaluated t_bgb (Myr): (a1 + a2 M^4 + a3 M^5.5 +
     # M^7) / (a4 M^2 + a5 M^7)
@@ -249,7 +249,7 @@ def test_t_end_continuous_at_sn_cut():
 def test_hurley_coeffs_solar_column_matches_round1_constants():
     """coeffs(0.02) must reproduce the zeta = 0 constants (the round-1
     public surface A1..A10, X_SOLAR) exactly."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     c = h.coeffs(0.02)
     assert c[1] == h.A1 == 1.593890e3
@@ -263,7 +263,7 @@ def test_hurley_metallicity_polynomials_hand_evaluated():
     polynomials at Z = 0.002 (zeta = -1): a_i = c0 - c1 + c2 - c3."""
     import math
 
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     c = h.coeffs(0.002)
     zeta = math.log10(0.002 / 0.02)
@@ -303,8 +303,8 @@ def test_metallicity_threads_through_evolution():
 
 def test_metallicity_config_guard():
     """init_cluster rejects Z outside the Hurley fit validity range."""
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim.init import init_cluster
+    from al26.config import SimConfig
+    from al26.sim.init import init_cluster
 
     with pytest.raises(ValueError, match="metallicity"):
         init_cluster(SimConfig(n=8, metallicity=0.5,
@@ -341,7 +341,7 @@ def test_lc18_anchors_match_independent_rederivation():
     re-derived in-test from the shipped raw tables for every [Fe/H]."""
     import os
 
-    from al26_tpu.models.stellar import lc18_anchors as lc
+    from al26.models.stellar import lc18_anchors as lc
 
     raw = os.path.join(os.path.dirname(lc.__file__), "..", "..", "data",
                        "limongi_chieffi_2018", "raw")
@@ -363,7 +363,7 @@ def test_lc18_anchors_match_independent_rederivation():
 def test_evolution_uses_lc18_anchors():
     """m_presn / m_remnant / total_wind_loss hit the LC18 anchor values
     exactly at the grid masses, per [Fe/H] set."""
-    from al26_tpu.models.stellar import lc18_anchors as lc
+    from al26.models.stellar import lc18_anchors as lc
 
     for feh, z in [(0, 0.02), (-1, 0.002), (-2, 2e-4), (-3, 2e-5)]:
         presn, rem = lc.anchors(feh)
@@ -382,7 +382,7 @@ def test_evolution_uses_lc18_anchors():
 def test_tout96_zams_reproduces_the_sun():
     """Tout et al. (1996) fits at 1 Msun give the ZAMS Sun:
     L = 0.70 Lsun, R = 0.89 Rsun."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     assert abs(float(h.l_zams(1.0)) - 0.70) < 0.02
     assert abs(float(h.r_zams(1.0)) - 0.89) < 0.02
@@ -395,7 +395,7 @@ def test_tout96_zams_reproduces_the_sun():
 def test_nj90_formula_transcription():
     """NJ90: log10(-Mdot) = -14.02 + 1.24 logL + 0.16 logM + 0.81 logR,
     evaluated independently here against hurley2000.mdot_nj90."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     rng = np.random.default_rng(3)
     for _ in range(20):
@@ -418,9 +418,9 @@ def test_ms_wind_cap_on_grid():
     The pairings use the runtime resolution feh_for_z — the feh=-3 set
     is unreachable within the Hurley validity range [1e-4, 0.03] (it
     needs z < 6.3e-5)."""
-    from al26_tpu.models.stellar import hurley2000 as h
-    from al26_tpu.models.stellar import lc18_anchors as lc
-    from al26_tpu.models.yields import feh_for_z
+    from al26.models.stellar import hurley2000 as h
+    from al26.models.stellar import lc18_anchors as lc
+    from al26.models.yields import feh_for_z
 
     tms = np.asarray(h.t_ms(lc.M_GRID))
     zs = [0.02, 0.002, 2e-4, 1e-4]
@@ -473,7 +473,7 @@ def test_hurley_z_validity_guard():
     """coeffs raises outside the published fit range [1e-4, 0.03]: the
     config-level check (sim.init) is bypassed by library callers passing
     an explicit z kwarg, so the formula module enforces its own domain."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     with pytest.raises(ValueError, match="validity"):
         h.coeffs(5e-5)
@@ -491,7 +491,7 @@ def test_ms_mdot_table_matches_closed_form():
     """The in-jit log-log interpolation table reproduces the host-side
     NJ90/Tout closed form to < 0.2% (and stays finite in f32 where the
     raw rational fits overflow)."""
-    from al26_tpu.models.stellar import hurley2000 as h
+    from al26.models.stellar import hurley2000 as h
 
     ms = np.geomspace(0.8, 150.0, 333)
     log_mg, log_rate = st._ms_mdot_table(0.02)
@@ -555,7 +555,7 @@ def test_ms_wind_ramp_matches_dump_quantiles():
     dump-derived within-MS cumulative release quantiles (q25/q50/q75 of
     the digitized SeBa curves) to < 0.04 in life fraction on every
     calibration mass — the shape pin VERDICT r4 item 3 asked for."""
-    from al26_tpu.models.stellar import wind_shape
+    from al26.models.stellar import wind_shape
 
     tbl = wind_shape.table()
     u = np.linspace(0.0, 1.0, 2001)
@@ -591,7 +591,7 @@ def test_seba_ms_share_matches_dump():
     by the end of the MS equals the dump-calibrated ms_frac (3-10% over
     the 20-60 Msun grid) — replacing the round-4 0.5 cap, which was
     ~5-15x too MS-heavy against the reference's own curves."""
-    from al26_tpu.models.stellar import wind_shape
+    from al26.models.stellar import wind_shape
 
     tbl = wind_shape.table()
     m0 = jnp.asarray(tbl["m0"])

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim import init_cluster, run_steps, step
-from al26_tpu.state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE
-from al26_tpu.ops.nbody import total_energy
+from al26.config import SimConfig
+from al26.sim import init_cluster, run_steps, step
+from al26.state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE
+from al26.ops.nbody import total_energy
 
 
 @pytest.fixture(scope="module")
@@ -80,8 +80,8 @@ def test_supernova_fires_once():
     c = state.cluster
     m = np.asarray(c.mass).copy()
     m[0] = 60.0
-    from al26_tpu.models.stellar import evolution as st
-    from al26_tpu.models.yields import massive_star_yields, read_slrs
+    from al26.models.stellar import evolution as st
+    from al26.models.yields import massive_star_yields, read_slrs
     twl = np.zeros_like(m)
     twl[0] = float(st.total_wind_loss(jnp.asarray(60.0)))
     y = massive_star_yields(m, read_slrs(), twl)
@@ -95,7 +95,7 @@ def test_supernova_fires_once():
     ))
     # rebuild aux from the modified m0: the massive-star slots AND (round 3)
     # the precomputed stellar PhaseTable derive from the initial masses
-    from al26_tpu.sim.init import build_aux
+    from al26.sim.init import build_aux
     aux = build_aux(cfg, m, state.cluster.pos.dtype)
 
     t_sn = float(st.t_sn(jnp.asarray(60.0)))
@@ -122,8 +122,8 @@ def test_supernova_injection_with_exploding_star():
     c = state.cluster
     m = np.asarray(c.mass).copy()
     m[0] = 20.0
-    from al26_tpu.models.stellar import evolution as st
-    from al26_tpu.models.yields import massive_star_yields, read_slrs
+    from al26.models.stellar import evolution as st
+    from al26.models.yields import massive_star_yields, read_slrs
     twl = np.zeros_like(m)
     twl[0] = float(st.total_wind_loss(jnp.asarray(20.0)))
     y = massive_star_yields(m, read_slrs(), twl)
@@ -252,8 +252,8 @@ def test_sn_fires_for_13msun_star_that_thins_below_threshold():
     c = state.cluster
     m = np.asarray(c.mass).copy()
     m[0] = 13.5
-    from al26_tpu.models.stellar import evolution as st
-    from al26_tpu.models.yields import massive_star_yields, read_slrs
+    from al26.models.stellar import evolution as st
+    from al26.models.yields import massive_star_yields, read_slrs
     t_cc = float(st.t_sn(jnp.asarray(13.5)))   # ~16.6 Myr (Hurley+2000)
     assert t_cc < 20.0
     # the pre-SN mass is below the 13 Msun threshold — the failing case
@@ -295,9 +295,9 @@ def test_sn_parity_gate_loses_low_bin_sn():
     import jax.numpy as jnp
     import numpy as np
 
-    from al26_tpu.models.stellar import evolution as st
-    from al26_tpu.sim.init import build_aux
-    from al26_tpu.sim.step import step
+    from al26.models.stellar import evolution as st
+    from al26.sim.init import build_aux
+    from al26.sim.step import step
 
     base = SimConfig(n=8, rc=1.0, final_time=20.0, seed=4, dtype="f64",
                      no_massive_star_requirement=True)

@@ -23,12 +23,12 @@ import jax.numpy as jnp
 import numpy as np
 
 import reference_step_numpy as ref
-from al26_tpu.config import SimConfig
-from al26_tpu.ops.nbody import virial_radius
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.init import build_aux
-from al26_tpu.sim.step import physics_after_advance
-from al26_tpu.state import CH_GLOBAL, CH_LOCAL, CH_SNE
+from al26.config import SimConfig
+from al26.ops.nbody import virial_radius
+from al26.sim import init_cluster
+from al26.sim.init import build_aux
+from al26.sim.step import physics_after_advance
+from al26.state import CH_GLOBAL, CH_LOCAL, CH_SNE
 
 N = 32
 N_STEPS = 50
@@ -36,7 +36,7 @@ T0 = 7.2
 
 
 def _setup(tracks: str = "lc18"):
-    from al26_tpu.models.stellar import evolution as st
+    from al26.models.stellar import evolution as st
 
     cfg = SimConfig(n=N, rc=0.5, final_time=10.0, seed=11, dtype="f64",
                     no_massive_star_requirement=True, sn_parity_mode=True,
@@ -125,7 +125,7 @@ def _diff_against_transcription(state, aux, cfg, st):
         t_new = float(state.time) + (k + 1) * cfg.dt
         r_virs_ref.append(ref.reference_step(sim, t_new, cfg.dt))
 
-    # --- al26_tpu side: the jitted composed physics at frozen positions --
+    # --- al26 side: the jitted composed physics at frozen positions --
     @jax.jit
     def run(s):
         def body(s, _):

@@ -5,9 +5,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from al26_tpu.config import SimConfig
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.step import (
+from al26.config import SimConfig
+from al26.sim import init_cluster
+from al26.sim.step import (
     fresh_cache, run_steps, run_steps_cached_strided, stride_active,
 )
 
@@ -98,7 +98,7 @@ def test_stride_on_mesh_tracks_unstrided():
     """Round 3: the gravity stride engages on the mesh path (previously
     single-chip only) — one column-sharded force advance spanning m steps,
     tracking the unstrided mesh run at the single-chip stride tolerances."""
-    from al26_tpu.parallel.sharded import make_mesh, shard_state_rows
+    from al26.parallel.sharded import make_mesh, shard_state_rows
 
     cfg1 = _cfg()
     state, aux, cfg1 = init_cluster(cfg1)
@@ -129,8 +129,8 @@ def test_stride_mesh_one_sweep_per_stride(monkeypatch):
     """One eager mesh stride of m=2 physics steps runs exactly ONE full
     row sweep (the closing evaluation; the subcycle's K x N row work goes
     through the column-sharded rows fn)."""
-    import al26_tpu.parallel.sharded as shd
-    from al26_tpu.sim.step import _stride_impl
+    import al26.parallel.sharded as shd
+    from al26.sim.step import _stride_impl
 
     counter = {"n": 0}
     real = shd._local_rows_force
@@ -162,7 +162,7 @@ def test_driver_mesh_async_saves(tmp_path):
     gathers sharded state on the main thread before submitting the job."""
     import os
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)
@@ -190,7 +190,7 @@ def test_driver_runs_with_stride(tmp_path):
     set and a final state matching stride=1 closely."""
     import os
 
-    from al26_tpu.sim.driver import run
+    from al26.sim.driver import run
 
     cwd = os.getcwd()
     os.chdir(tmp_path)

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.ops.nbody import total_energy
-from al26_tpu.sim import init_cluster
-from al26_tpu.sim.step import (
+from al26.config import SimConfig
+from al26.ops.nbody import total_energy
+from al26.sim import init_cluster
+from al26.sim.step import (
     fresh_cache, run_steps, run_steps_cached_strided,
 )
 

@@ -21,9 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from al26_tpu.config import SimConfig
-from al26_tpu.ops.nbody import acc_jerk_pot_chunked
-from al26_tpu.ops.tree import (
+from al26.config import SimConfig
+from al26.ops.nbody import acc_jerk_pot_chunked
+from al26.ops.tree import (
     build_block_tree, make_tree_acc, make_tree_sweep, p2p_partner_counts,
     tree_acc_pot,
 )
@@ -63,7 +63,7 @@ def test_small_n_equals_exact_including_padding():
 def test_pot_eps2_convention():
     # pot_eps2 softens the potential separately from the forces — the
     # same convention as the Pallas kernel (raw-potential virial radius)
-    from al26_tpu.ops.nbody import acc_pot_dense
+    from al26.ops.nbody import acc_pot_dense
 
     rng = np.random.default_rng(5)
     pos = jnp.asarray(rng.normal(size=(700, 3)))
@@ -196,8 +196,8 @@ _BASE = dict(n=512, rc=1.0, final_time=0.1, n_plot=10, steps_per_plot=1,
 # slow lane (round-5 re-tier): leapfrog tree step equality (the hermite4_block step equality and the op-level small-N exactness stay default)
 @pytest.mark.slow
 def test_step_tree_matches_exact_leapfrog_small_n():
-    from al26_tpu.sim.init import init_cluster
-    from al26_tpu.sim.step import fresh_cache, run_steps_cached, step
+    from al26.sim.init import init_cluster
+    from al26.sim.step import fresh_cache, run_steps_cached, step
 
     cfg_t = SimConfig(**_BASE, force_impl="tree")
     state_t, aux_t, rcfg_t = init_cluster(cfg_t)
@@ -232,8 +232,8 @@ def test_step_tree_hermite4_block_matches_exact_small_n():
     # forces. At all-P2P scale (N=512, leaf=256) the tree IS the exact
     # pair sum -> trajectories match the exact-backend block-Hermite to
     # fp tolerance, through the cached production path (run_steps).
-    from al26_tpu.sim.init import init_cluster
-    from al26_tpu.sim.step import run_steps
+    from al26.sim.init import init_cluster
+    from al26.sim.step import run_steps
 
     cfg_t = SimConfig(**_BASE, force_impl="tree",
                       integrator="hermite4_block")
@@ -255,7 +255,7 @@ def test_tree_auto_resolves_hermite4_block_large_n():
     # auto + tree resolves to the block-Hermite above the hermite4
     # cutover (the large-N regime the tier exists for); pure config-level
     # check via resolve_integrator (no init at 10k stars needed)
-    from al26_tpu.sim.init import resolve_integrator
+    from al26.sim.init import resolve_integrator
 
     cfg = resolve_integrator(
         SimConfig(n=10000, force_impl="tree"), m_total=6000.0)
@@ -268,7 +268,7 @@ def test_tree_auto_resolves_hermite4_block_large_n():
 
 def test_tree_jerk_matches_exact_small_n():
     # all-P2P scale: tree jerk == exact pairwise jerk to fp roundoff
-    from al26_tpu.ops.tree import tree_acc_jerk_pot
+    from al26.ops.tree import tree_acc_jerk_pot
 
     rng = np.random.default_rng(37)
     n = 1500
@@ -291,7 +291,7 @@ def test_tree_jerk_monopole_accuracy_bounded():
     # MAC engaged: the monopole jerk (nodes moving at their mass-weighted
     # mean velocity) stays in the same accuracy class as the monopole
     # acceleration — jerk only steers the Hermite timestep/corrector
-    from al26_tpu.ops.tree import tree_acc_jerk_pot
+    from al26.ops.tree import tree_acc_jerk_pot
 
     rng = np.random.default_rng(41)
     pos, mass = _clumpy(rng, 4096)
@@ -317,19 +317,19 @@ def test_tree_theta_validated():
         tree_acc_pot(pos, mass, 1e-4, leaf=128, theta=1.5, kavg=8)
     with pytest.raises(ValueError, match="must be > 0"):
         tree_acc_pot(pos, mass, 1e-4, leaf=128, theta=0.0, kavg=8)
-    from al26_tpu.sim.init import init_cluster
+    from al26.sim.init import init_cluster
     with pytest.raises(ValueError, match="tree_theta"):
         init_cluster(SimConfig(**_BASE, force_impl="tree", tree_theta=1.5))
 
 
 def test_tree_rejects_hermite_and_bad_mesh_and_ensemble():
-    from al26_tpu.sim.init import init_cluster
+    from al26.sim.init import init_cluster
 
     with pytest.raises(ValueError, match="supports integrator"):
         init_cluster(SimConfig(**_BASE, force_impl="tree",
                                integrator="hermite4"))
 
-    from al26_tpu.sim.driver import run, run_ensemble
+    from al26.sim.driver import run, run_ensemble
 
     # mesh + tree is supported (round 5) — but the block count must
     # divide by the mesh (n=512 at leaf=256 -> 2 blocks vs 8 devices),
@@ -354,9 +354,9 @@ def test_tree_mesh_matches_single_chip():
     # fake 8-device mesh
     import jax
 
-    from al26_tpu.parallel.sharded import make_mesh, shard_state_rows
-    from al26_tpu.sim.init import init_cluster
-    from al26_tpu.sim.step import run_steps
+    from al26.parallel.sharded import make_mesh, shard_state_rows
+    from al26.sim.init import init_cluster
+    from al26.sim.step import run_steps
 
     assert len(jax.devices()) == 8
     cfg = SimConfig(**_BASE, force_impl="tree", tree_leaf=16,
@@ -375,7 +375,7 @@ def test_tree_mesh_matches_single_chip():
 
 
 def test_cli_tree_flags():
-    from al26_tpu.cli import build_parser, config_from_args
+    from al26.cli import build_parser, config_from_args
 
     args = build_parser().parse_args(
         ["-n", "512", "-rc", "1.0", "--force_impl", "tree",
@@ -388,109 +388,13 @@ def test_cli_tree_flags():
     assert cfg.tree_kavg == 32
 
 
-# ---------------------------------------------------------------------------
-# Pallas near-field kernel (ops/pallas_tree.py)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.slow
-def test_pallas_near_field_matches_xla():
-    # the pair-list Pallas kernel is the same pair sum as the XLA scan,
-    # rescheduled — agreement to f32 summation-order roundoff, with
-    # padding exercised (n not a multiple of leaf) and the revisited-
-    # output accumulation crossing many uneven target runs (clumpy MAC);
-    # slow lane: the interpret-mode grid loop is python-speed — the
-    # default lane covers the kernel through the public entry point
-    # (test_tree_acc_pot_near_impl_pallas_full_path)
-    from al26_tpu.ops.pallas_tree import pallas_p2p_near_field
-    from al26_tpu.ops.tree import _p2p_near_field, build_block_tree, mac_masks
-    from al26_tpu.units import G_INTERNAL
-
-    rng = np.random.default_rng(23)
-    n, leaf = 900, 128
-    pos, mass = _clumpy(rng, n)
-    pos32 = pos.astype(jnp.float32)
-    mass32 = mass.astype(jnp.float32)
-    eps2 = 1e-4
-    tree = build_block_tree(pos32, mass32, leaf)
-    _, p2p = mac_masks(tree, 0.75)
-    assert 0 < int(jnp.sum(p2p)) < p2p.size  # MAC engaged: sparse pair list
-    cnt = np.asarray(jnp.sum(p2p, axis=1))
-    kavg = int(cnt.mean()) + 4
-
-    for pot_eps2 in (None, 1e-30):
-        a_x, _, p_x, o_x = _p2p_near_field(
-            tree, p2p, eps2, G_INTERNAL, pot_eps2, kavg)
-        a_p, _, p_p, o_p = pallas_p2p_near_field(
-            tree.pos_s, tree.mass_s, p2p, n, eps2, leaf=leaf, kavg=kavg,
-            pot_eps2=pot_eps2, interpret=True)
-        assert not bool(o_x) and not bool(o_p)
-        sa = float(jnp.max(jnp.abs(a_x)))
-        sp = float(jnp.max(jnp.abs(p_x)))
-        np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x),
-                                   rtol=0, atol=1e-5 * sa)
-        np.testing.assert_allclose(np.asarray(p_p), np.asarray(p_x),
-                                   rtol=0, atol=1e-5 * sp)
-
-    # jerk variant: exact pairwise jerk agrees across backends too
-    vel32 = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    tree_v = build_block_tree(pos32, mass32, leaf, vel32)
-    a_x, j_x, p_x, _ = _p2p_near_field(
-        tree_v, p2p, eps2, G_INTERNAL, 1e-30, kavg, with_jerk=True)
-    a_p, j_p, p_p, _ = pallas_p2p_near_field(
-        tree_v.pos_s, tree_v.mass_s, p2p, n, eps2, leaf=leaf, kavg=kavg,
-        pot_eps2=1e-30, vel_s=tree_v.vel_s, with_jerk=True, interpret=True)
-    sj = float(jnp.max(jnp.abs(j_x)))
-    np.testing.assert_allclose(np.asarray(j_p), np.asarray(j_x),
-                               rtol=0, atol=1e-5 * sj)
-    np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x),
-                               rtol=0, atol=1e-5 * float(jnp.max(jnp.abs(a_x))))
-
-
-# slow lane (round-5 re-tier): interpret-mode pallas overflow flag (the XLA overflow poison test stays default; pallas equality is in the slow lane)
-@pytest.mark.slow
-def test_pallas_near_field_overflow_flag():
-    from al26_tpu.ops.pallas_tree import pallas_p2p_near_field
-    from al26_tpu.ops.tree import build_block_tree, mac_masks
-
-    rng = np.random.default_rng(29)
-    pos, mass = _clumpy(rng, 1024)
-    tree = build_block_tree(pos.astype(jnp.float32),
-                            mass.astype(jnp.float32), 128)
-    _, p2p = mac_masks(tree, 0.75)
-    _, _, _, ovf = pallas_p2p_near_field(
-        tree.pos_s, tree.mass_s, p2p, 1024, 1e-4, leaf=128, kavg=1,
-        interpret=True)
-    assert bool(ovf)
-
-
-def test_tree_acc_pot_near_impl_pallas_full_path():
-    # near_impl="pallas" through the public entry point equals the XLA
-    # near field composed with the same far field (f32 roundoff)
-    rng = np.random.default_rng(31)
-    n = 1200
-    pos, mass = _clumpy(rng, n)
-    pos32 = pos.astype(jnp.float32)
-    mass32 = mass.astype(jnp.float32)
-    a_x, p_x, o_x = tree_acc_pot(pos32, mass32, 1e-4, leaf=128, theta=0.75,
-                                 kavg=16, pot_eps2=1e-30, near_impl="xla")
-    a_p, p_p, o_p = tree_acc_pot(pos32, mass32, 1e-4, leaf=128, theta=0.75,
-                                 kavg=16, pot_eps2=1e-30, near_impl="pallas")
-    assert not bool(o_x) and not bool(o_p)
-    sa = float(jnp.max(jnp.abs(a_x)))
-    sp = float(jnp.max(jnp.abs(p_x)))
-    np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x),
-                               rtol=0, atol=1e-5 * sa)
-    np.testing.assert_allclose(np.asarray(p_p), np.asarray(p_x),
-                               rtol=0, atol=1e-5 * sp)
-
-
 def test_step_tree_relative_mac_tracks_exact():
     # relative MAC through the production cached path: tight alpha on an
     # all-P2P-scale cluster stays within fp distance of the exact
     # block-Hermite (the seeding sweep is EXACT by design; subsequent
     # steps open against the cached acceleration)
-    from al26_tpu.sim.init import init_cluster
-    from al26_tpu.sim.step import run_steps
+    from al26.sim.init import init_cluster
+    from al26.sim.step import run_steps
 
     cfg_t = SimConfig(**_BASE, force_impl="tree", tree_mac="relative",
                       tree_alpha=1e-5)
@@ -509,7 +413,7 @@ def test_step_tree_relative_mac_tracks_exact():
 
 
 def test_tree_relative_mac_config_guards():
-    from al26_tpu.sim.init import init_cluster
+    from al26.sim.init import init_cluster
 
     with pytest.raises(ValueError, match="relative"):
         init_cluster(SimConfig(**_BASE, force_impl="tree",
@@ -525,7 +429,7 @@ def test_tree_relative_mac_config_guards():
                                tree_mac="relative", natal_kicks=True))
     # defensive _resolve_integ mirrors the relative -> hermite4_block
     # rule for dict-recreated configs that bypass init
-    from al26_tpu.sim.step import _resolve_integ
+    from al26.sim.step import _resolve_integ
 
     assert _resolve_integ(
         SimConfig(**_BASE, force_impl="tree", tree_mac="relative"), 512
@@ -539,7 +443,7 @@ def test_tree_relative_mac_config_guards():
 
 
 def test_cli_tree_mac_flags():
-    from al26_tpu.cli import build_parser, config_from_args
+    from al26.cli import build_parser, config_from_args
 
     args = build_parser().parse_args(
         ["-n", "512", "-rc", "1.0", "--force_impl", "tree",

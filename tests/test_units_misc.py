@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from al26_tpu import units as u
+from al26 import units as u
 
 
 def test_unit_conversions():
@@ -37,7 +37,7 @@ def test_g_internal_value():
 def test_min_intercept_time():
     import jax.numpy as jnp
 
-    from al26_tpu.ops.nbody import min_intercept_time
+    from al26.ops.nbody import min_intercept_time
 
     pos = jnp.asarray([[0.0, 0, 0], [1.0, 0, 0], [0.0, 3, 0]])
     vel = jnp.asarray([[2.0, 0, 0], [0.0, 0, 0], [1.0, 0, 0]])
@@ -53,8 +53,8 @@ def test_determinism_same_seed():
     deterministic reductions; SURVEY.md §7 hard part 2)."""
     import numpy as np
 
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim import init_cluster, run_steps
+    from al26.config import SimConfig
+    from al26.sim import init_cluster, run_steps
 
     cfg = SimConfig(n=48, rc=0.5, final_time=1.0, seed=77)
     s1, a1, c1 = init_cluster(cfg)
@@ -71,10 +71,10 @@ def test_state_validation_catches_corruption():
     import numpy as np
     import pytest as _pytest
 
-    from al26_tpu.config import SimConfig
-    from al26_tpu.sim import init_cluster
-    from al26_tpu.state import cluster_to_numpy
-    from al26_tpu.utils.validate import StateValidationError, validate_cluster_dict
+    from al26.config import SimConfig
+    from al26.sim import init_cluster
+    from al26.state import cluster_to_numpy
+    from al26.utils.validate import StateValidationError, validate_cluster_dict
 
     cfg = SimConfig(n=16, rc=1.0, seed=1, no_massive_star_requirement=True)
     state, _, _ = init_cluster(cfg)
@@ -98,7 +98,7 @@ def test_phase_timers_accumulate_and_report():
     accumulate per phase and the report sorts by total."""
     import time
 
-    from al26_tpu.utils.timing import PhaseTimers
+    from al26.utils.timing import PhaseTimers
 
     tm = PhaseTimers()
     for _ in range(3):
@@ -132,7 +132,7 @@ def test_array_or_unit_builds_one_quantity():
     per-element Quantities would crash that path."""
     import numpy as np
 
-    from al26_tpu import units as u
+    from al26 import units as u
 
     q = np.array([1.0, 2.0, 3.0]) | u.kg
     assert isinstance(q, u.Quantity)
