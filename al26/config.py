@@ -126,29 +126,28 @@ class SimConfig:
     k_ultra: int = 0                   # hermite4_block third tier: the
     #   k_ultra fastest rows subcycle at the shared minimum while the rest
     #   of the fast group steps at its OWN shared-minimum pace. 0 =
-    #   two-level (default). Measured at N=102400/rc=3: ~2% end-to-end
-    #   (the subcycle is launch-overhead-bound there); the win grows with
-    #   density/k_fast where pair work dominates (docs/precision.md).
+    #   two-level (default). It pays where pair work in the subcycle
+    #   dominates (dense clusters, large k_fast); its speed on the H100 is
+    #   not measured (docs/precision.md).
     substeps_max: int = 4096           # static bound on internal substeps/outer step
     gravity_stride: int = 1            # run ONE hermite4_block force
     #   advance per `gravity_stride` physics steps; the interior steps read
     #   predictor-sampled positions (fast group: subcycle-captured). All
     #   SLR physics still runs every dt — only the full O(N^2) sweep is
-    #   strided. 1 = exact reference cadence (default). 2 cuts the
-    #   N=102400 wall-clock 1.76x at a 1.8e-6 relative energy deviation
-    #   (4 -> 2.9x / 4.8e-6) — measured numbers in docs/precision.md.
-    #   Engages only on the cache-capable Pallas hermite4_block path;
-    #   ignored elsewhere.
+    #   strided. 1 = exact reference cadence (default). Stride 2 costs a
+    #   1.8e-6 relative energy deviation at N=102400, stride 4 4.8e-6
+    #   (docs/precision.md, earlier build); its speed on the H100 is not
+    #   measured. Engages only on the cache-capable kernel hermite4_block
+    #   path; ignored elsewhere.
     softened_virial: bool = False      # compute the virial radius (global
     #   wind-bubble size) from the BHTree-SOFTENED potential instead of the
     #   reference's raw one (AMUSE virial_radius, al26_nbody.py:767-770).
-    #   Saves the Pallas sweep's second rsqrt per pair (68 -> 83 Gpairs/s;
-    #   16.1 -> 13.5 s/Myr at N=1e5). Honest cost: r_vir grows 6-18%
-    #   (softened U is shallower), diluting the GLOBAL mixing channel by
-    #   up to ~1.6x in volume; dynamics + local channel are unchanged
-    #   (docs/precision.md). Single-cluster path only: flattened ensembles
-    #   keep the raw-pot virial radius (their group-masked sweeps use the
-    #   exact VPU sums, so there is nothing to save).
+    #   Saves the kernel's second rsqrt per pair; its speed on the H100 is
+    #   not measured. Cost: r_vir grows 6-18% (softened U is shallower),
+    #   diluting the GLOBAL mixing channel by up to ~1.6x in volume;
+    #   dynamics + local channel are unchanged (docs/precision.md, earlier
+    #   build). Single-cluster path only: flattened ensembles keep the
+    #   raw-pot virial radius.
     force_cache: bool = True           # carry each step's closing force
     #   evaluation into the next step's opening one (mass-delta-corrected;
     #   sim/step.py) — ONE full O(N^2) sweep per step instead of two, on

@@ -289,6 +289,18 @@ class _Stub:
             self._stub_state = state
 
 
+def renamed_module(module: str) -> str:
+    """This package's module path for a module pickled under one of the
+    package's earlier names, `al26_<suffix>.<module>` (checkpoints written
+    before the rename name their classes so); other paths unchanged. The
+    reference's own modules (al26_nbody, al26_plot) are single files and
+    have no `.<module>` part."""
+    root, dot, rest = module.partition(".")
+    if dot and root.startswith("al26_"):
+        return "al26." + rest
+    return module
+
+
 def _make_stub(module: str, name: str):
     return type(name, (_Stub,), {"_stub_class": f"{module}.{name}"})
 
@@ -307,6 +319,7 @@ class _TolerantUnpickler(pickle.Unpickler):
         key = (module.split(".")[-1], name)
         if key in self._REDIRECT:
             return self._REDIRECT[key]
+        module = renamed_module(module)
         try:
             return super().find_class(module, name)
         except (ImportError, AttributeError):

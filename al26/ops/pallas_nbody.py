@@ -55,6 +55,8 @@ class Tiles(NamedTuple):
 # whole sweep, 38.4 ms), "rows" at 512 scattered rows x N=102400 (the
 # hermite4_block subcycle, 0.34 ms), "group" at 64 x 1024 (the flattened
 # ensemble, 0.41 ms). Tiles above 1024 elements ran 15-45% slower.
+# Read when a call is traced: to try another entry, swap it and clear
+# JAX's caches (jax.clear_caches), as scripts/tune_kernel.py does.
 TILES = {
     "full": Tiles(16, 64, 4, 2, 528),
     "rows": Tiles(16, 64, 4, 2, 528),
@@ -176,7 +178,7 @@ def _tile_bounds(ids_p, nb: int, nt: int, n_split: int, group_size: int,
 
 @functools.partial(jax.jit,
                    static_argnames=("eps2", "g", "interpret", "with_jerk",
-                                    "group_size", "pot_eps2", "tiles"))
+                                    "group_size", "pot_eps2"))
 def pallas_acc_jerk_pot_rows(
     pos_rows: jax.Array,   # [B,3]  target rows (a subset of the columns)
     vel_rows: jax.Array,   # [B,3]
@@ -191,7 +193,6 @@ def pallas_acc_jerk_pot_rows(
     with_jerk: bool = True,
     group_size: int = 0,
     pot_eps2: float | None = None,
-    tiles: Tiles | None = None,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Forces on `pos_rows` from all of `pos`: (acc [B,3], jerk [B,3],
     pot [B]), computed in f32 and returned in the rows' dtype.
@@ -201,8 +202,8 @@ def pallas_acc_jerk_pot_rows(
     from the forces (1e-30 ~ unsoftened), so one sweep serves both the
     integrator and the virial radius. `group_size > 0` restricts pairs to
     the same group (global_index // group_size): a flattened ensemble of
-    B realizations runs as ONE block-diagonal sweep. `tiles` overrides the
-    TILES table entry. `interpret=True` runs the Pallas interpreter (CPU
+    B realizations runs as ONE block-diagonal sweep; the TILES entry is
+    chosen by call_kind. `interpret=True` runs the Pallas interpreter (CPU
     tests only; callers take it from ops.backend.kernel_interpret).
 
     Used by the single-cluster sweep, the hermite4_block subcycle (a
@@ -211,7 +212,7 @@ def pallas_acc_jerk_pot_rows(
     b = pos_rows.shape[0]
     n = pos.shape[0]
     kind = call_kind(b, n, group_size)
-    t = tiles or TILES[kind]
+    t = TILES[kind]
     bp = _cdiv(b, t.block_i) * t.block_i
     np_ = _cdiv(n, t.block_j) * t.block_j
     nb = bp // t.block_i
@@ -264,14 +265,13 @@ def pallas_acc_jerk_pot(
     with_jerk: bool = True,
     group_size: int = 0,
     pot_eps2: float | None = None,
-    tiles: Tiles | None = None,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """(acc [N,3], jerk [N,3], pot [N]): the full sweep, every star a row
     (see pallas_acc_jerk_pot_rows)."""
     return pallas_acc_jerk_pot_rows(
         pos, vel, jnp.arange(pos.shape[0], dtype=jnp.int32), pos, vel, mass,
         eps2=float(eps2), g=g, interpret=interpret, with_jerk=with_jerk,
-        group_size=group_size, pot_eps2=pot_eps2, tiles=tiles,
+        group_size=group_size, pot_eps2=pot_eps2,
     )
 
 

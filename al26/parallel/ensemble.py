@@ -413,9 +413,9 @@ def ensemble_step_flat(batch_state, batch_aux, cfg: SimConfig,
         # fallback for callers that bypass init_ensemble's ensemble-boundary
         # resolution: adaptive Hermite (shared OR block) collapses on
         # evolved ensembles — one hardened softened binary anywhere in the
-        # batch demands ~dt/1000 substeps (observed: ~160 s/Myr either
-        # way). The reference's default solver is the fixed-substep BHTree
-        # leapfrog (al26_nbody.py:59); ensembles default to exactly that.
+        # batch demands ~dt/1000 substeps. The reference's default solver
+        # is the fixed-substep BHTree leapfrog (al26_nbody.py:59);
+        # ensembles default to exactly that.
         integ = "leapfrog"
     needs_jerk = integ in ("hermite4", "hermite4_block")
     pallas_on = backend.kernel_here(b * n, dtype)
@@ -611,31 +611,27 @@ ensemble_run_steps_cached = jax.jit(
 
 
 def ensemble_run_steps(batch_state, batch_aux, cfg: SimConfig, n_steps: int,
-                       flat: bool | None = None):
+                       flat: bool | None = None, mesh=None):
     """Scan n_steps over the ensemble. `flat=None` auto-selects the
     block-diagonal flattened advance where the Pallas kernel runs; the
     flat leapfrog/hermite4_block paths carry the force cache between steps
-    (ONE block-diagonal sweep per step, sim/step.py semantics)."""
+    (ONE block-diagonal sweep per step, sim/step.py semantics). `mesh`:
+    the 1-D ensemble mesh the batch is sharded over (shard_ensemble), so
+    the flat kernel sweeps each device's own realizations."""
     b, n = batch_state.cluster.mass.shape
     pallas_on = backend.kernel_here(b * n, batch_state.cluster.pos.dtype)
     if flat is None:
         flat = pallas_on
 
     if flat and ensemble_cacheable(batch_state, cfg):
-        cache = ensemble_fresh_cache(batch_state, cfg)
-
-        def body_cached(carry, _):
-            s, ch = carry
-            return ensemble_step_flat(s, batch_aux, cfg, ch,
-                                      want_cache=True), None
-
-        (out, _), _ = jax.lax.scan(body_cached, (batch_state, cache),
-                                   None, length=n_steps)
+        cache = ensemble_fresh_cache(batch_state, cfg, mesh)
+        out, _ = ensemble_run_steps_cached(batch_state, cache, batch_aux,
+                                           cfg, n_steps, mesh)
         return out
 
     def body(s, _):
         if flat:
-            return ensemble_step_flat(s, batch_aux, cfg), None
+            return ensemble_step_flat(s, batch_aux, cfg, mesh=mesh), None
         return ensemble_step(s, batch_aux, cfg), None
 
     out, _ = jax.lax.scan(body, batch_state, None, length=n_steps)
@@ -643,5 +639,5 @@ def ensemble_run_steps(batch_state, batch_aux, cfg: SimConfig, n_steps: int,
 
 
 ensemble_run_steps = jax.jit(
-    ensemble_run_steps, static_argnames=("cfg", "n_steps", "flat")
+    ensemble_run_steps, static_argnames=("cfg", "n_steps", "flat", "mesh")
 )

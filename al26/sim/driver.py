@@ -694,7 +694,7 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
             bs, ens_cache[0] = ensemble_run_steps_cached(
                 bs, ens_cache[0], batch_aux, cfg, n, mesh)
             return bs
-        return ensemble_run_steps(bs, batch_aux, cfg, n)
+        return ensemble_run_steps(bs, batch_aux, cfg, n, mesh=mesh)
 
     def _save_all_sync(bs, increment=True, final=False):
         # ONE batched device_get per save (slicing per realization would

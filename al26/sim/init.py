@@ -53,9 +53,8 @@ class SimAux:
     #                           untouched.
     stellar_tbl: stellar.PhaseTable  # per-star (m0, z)-only phase
     #                           constants, precomputed once — the per-step
-    #                           stellar.evolve was 10.6 ms of an 11.5 ms
-    #                           physics block at N=102400 (the Hurley fits
-    #                           re-ran every step on constant inputs);
+    #                           stellar.evolve re-ran the Hurley fits every
+    #                           step on constant inputs;
     #                           evolve_from_table is ~10 elementwise ops.
     #                           Stored in the precision it was computed in
     #                           (f64 under x64) for bit-identical results.

@@ -18,8 +18,9 @@ Phases (one card):
 
 With --multi (four cards): the row-sharded exact path (force_impl
 sharded and ring, N=131072, hermite4_block, 10 steps) and the 64 x 1024
-ensemble sharded over the cards, each compared with the same run on
-device 0 alone in the same process.
+ensemble sharded over the cards (cached leapfrog, and hermite4_block
+without the cache), each compared with the same run on device 0 alone in
+the same process.
 
 The script exits non-zero if JAX finds no GPU or any phase fails; its
 last line is one JSON object naming the device.
@@ -246,8 +247,9 @@ def phase_kernel(card: str) -> None:
 
 def phase_step_timing(card: str) -> None:
     """One hermite4_block step at N=102400 through run_steps: the kernel
-    (auto) against XLA's plain sweep (force_impl='default'), then a
-    profile of the kernel step: kernel time per call shape and the rest."""
+    with and without the force cache against XLA's plain sweep
+    (force_impl='default', which has no cache), then a profile of the
+    kernel step: kernel time per call shape and the rest."""
     import jax
 
     from al26.config import SimConfig
@@ -257,14 +259,18 @@ def phase_step_timing(card: str) -> None:
     cfg = SimConfig(n=102400, rc=1.0, final_time=0.2, n_plot=2,
                     steps_per_plot=10, seed=1, dtype="f32")
     state, aux, cfg = init_cluster(cfg)
+    runs = {"kernel+cache": (cfg, "auto"),
+            "kernel, no cache": (cfg.replace(force_cache=False), "pallas"),
+            "XLA plain (no cache)": (cfg, "default")}
     times = {}
-    for impl in ("auto", "default"):
-        f = lambda: run_steps(state, aux, cfg, 1, force_impl=impl)
-        times[impl] = best_time(f, reps=3)
-    print(f"time one hermite4_block step N=102400 through run_steps: "
-          f"kernel {times['auto'] * 1e3:.1f} ms, XLA plain "
-          f"{times['default'] * 1e3:.1f} ms, best of 3 [{card}]", flush=True)
-    if not times["auto"] < times["default"]:
+    for label, (c, impl) in runs.items():
+        f = lambda: run_steps(state, aux, c, 1, force_impl=impl)
+        times[label] = best_time(f, reps=3)
+    print("time one hermite4_block step N=102400 through run_steps: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+          + f", best of 3 [{card}]", flush=True)
+    # only the sweep differs between these two
+    if not times["kernel, no cache"] < times["XLA plain (no cache)"]:
         raise AssertionError("the kernel step is not faster than XLA's")
     with tempfile.TemporaryDirectory(prefix="al26-trace-") as d:
         with jax.profiler.trace(d):
@@ -412,8 +418,8 @@ def phase_multi(card: str) -> None:
 
     from al26.config import SimConfig
     from al26.parallel.ensemble import (
-        ensemble_fresh_cache, ensemble_run_steps_cached, init_ensemble,
-        make_ensemble_mesh, shard_ensemble,
+        ensemble_fresh_cache, ensemble_run_steps, ensemble_run_steps_cached,
+        init_ensemble, make_ensemble_mesh, shard_ensemble,
     )
     from al26.parallel.sharded import make_mesh, shard_state_rows
     from al26.sim import init_cluster, run_steps
@@ -474,6 +480,23 @@ def phase_multi(card: str) -> None:
           f"devices [{card}]", flush=True)
     if not (ep < MULTI_TOL and es < MULTI_TOL) or spread(out.cluster.pos) != 4:
         raise AssertionError("ensemble: mesh run disagrees")
+
+    # the uncached flat path (ensemble_run_steps): hermite4_block without
+    # the force cache, so the full sweeps and the subcycle's row sweeps
+    # both run over the sharded batch
+    hcfg = ecfg.replace(integrator="hermite4_block", force_cache=False)
+    one = ensemble_run_steps(bs, ba, hcfg, 10)
+    t0 = time.time()
+    out = jax.block_until_ready(
+        ensemble_run_steps(bs4, ba4, hcfg, 10, mesh=emesh))
+    ep = scaled(out.cluster.pos, one.cluster.pos)
+    es = scaled(out.cluster.slr, one.cluster.slr)
+    print(f"4 cards ensemble 64 x 1024 hermite4_block, no cache, 10 steps: "
+          f"{time.time() - t0:.1f} s (compile included); vs one card pos "
+          f"{ep:.3e} slr {es:.3e} (tolerance {MULTI_TOL:g}); output on "
+          f"{spread(out.cluster.pos)} devices [{card}]", flush=True)
+    if not (ep < MULTI_TOL and es < MULTI_TOL) or spread(out.cluster.pos) != 4:
+        raise AssertionError("uncached ensemble: mesh run disagrees")
     for d in devs:
         peak = (d.memory_stats() or {}).get("peak_bytes_in_use", 0)
         print(f"  {d}: peak {peak / 2**30:.2f} GiB", flush=True)

@@ -38,7 +38,9 @@ def main() -> int:
     import numpy as np
 
     from al26.ops.nbody import _row_block_acc_jerk_pot, acc_jerk_pot_chunked
-    from al26.ops.pallas_nbody import Tiles, pallas_acc_jerk_pot_rows
+    from al26.ops.pallas_nbody import (
+        TILES, Tiles, call_kind, pallas_acc_jerk_pot_rows,
+    )
     from al26.units import G_INTERNAL
 
     dev = jax.devices()[0]
@@ -47,11 +49,15 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     def sweep(t, eps2, group_size, pos, vel, mass, ids):
-        """The kernel on rows `ids`, gathers inside one jitted call (an
-        eager gather costs milliseconds of host time)."""
+        """The kernel with tiles `t` on rows `ids`, gathers inside one
+        jitted call (an eager gather costs milliseconds of host time).
+        TILES is read at trace time, so the entry is swapped and JAX's
+        caches cleared first."""
+        TILES[call_kind(ids.shape[0], pos.shape[0], group_size)] = t
+        jax.clear_caches()
         g = jax.jit(lambda p, v, m, i: pallas_acc_jerk_pot_rows(
             p[i], v[i], i, p, v, m, eps2=eps2, group_size=group_size,
-            pot_eps2=1e-30, tiles=t))
+            pot_eps2=1e-30))
         return lambda: g(pos, vel, mass, ids)
 
     def shape_case(name, n, rows, group_size, eps2, min_programs_list):

@@ -199,6 +199,51 @@ def test_resume_continues_identically(tmp_path):
         os.chdir(cwd)
 
 
+def test_resume_from_checkpoint_pickled_under_earlier_package_name(tmp_path):
+    """State files written before the package took the name `al26` name
+    their classes `al26_<suffix>.<module>`; they load as this package's
+    classes and the run resumes as if uninterrupted."""
+    import glob
+
+    from al26.config import SimConfig
+    from al26.io.checkpoint import load_state
+    from al26.io.compat import Particles, State, renamed_module
+    from al26.sim.driver import run
+
+    assert renamed_module("al26_old.io.compat") == "al26.io.compat"
+    assert renamed_module("al26_nbody") == "al26_nbody"
+    assert renamed_module("amuse.units.core") == "amuse.units.core"
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        cfg = SimConfig(n=32, rc=0.5, final_time=1.0, seed=9,
+                        filename="old", n_plot=5, steps_per_plot=4)
+        full = run(cfg, progress=False)
+        for path in glob.glob("old-state-*.pkl.zst"):
+            with open(path, "rb") as f:
+                state = pickle.loads(decompress(f.read()))
+            # protocol 2 names classes as text (GLOBAL: c<module>\n<name>\n)
+            raw = pickle.dumps(state, protocol=2)
+            assert b"cal26.io.compat\n" in raw
+            raw = raw.replace(b"cal26.", b"cal26_old.")
+            with pytest.raises(ModuleNotFoundError):
+                pickle.loads(raw)
+            with open(path, "wb") as f:
+                f.write(compress(raw))
+        state = load_state("old-state-00003.pkl.zst")
+        assert type(state) is State and type(state.cluster) is Particles
+        resumed = run(SimConfig(reload="old", n_checkpoint=3),
+                      progress=False)
+        np.testing.assert_allclose(
+            np.asarray(resumed.state.cluster.pos),
+            np.asarray(full.state.cluster.pos), rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(
+            np.asarray(resumed.state.cluster.slr),
+            np.asarray(full.state.cluster.slr), rtol=1e-8, atol=1e-30)
+    finally:
+        os.chdir(cwd)
+
+
 # slow lane (round-5 re-tier): run-extension end-to-end (5 driver runs; the extended_to schedule algebra stays default in test_extended_to_*, resume itself in test_resume_continues_identically)
 @pytest.mark.slow
 def test_resume_extends_final_time(tmp_path):

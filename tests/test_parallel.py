@@ -913,3 +913,32 @@ def test_ensemble_flat_kernel_per_device_under_mesh(monkeypatch):
     np.testing.assert_allclose(np.asarray(s8.cluster.pos),
                                np.asarray(s1.cluster.pos), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("integrator,force_cache", [
+    ("leapfrog", False), ("hermite4", True), ("hermite4_block", False),
+    ("leapfrog", True)])
+def test_ensemble_run_steps_flat_kernel_per_device_under_mesh(
+        monkeypatch, integrator, force_cache):
+    """ensemble_run_steps (the driver's path when the cache is off or the
+    integrator cannot carry it) sweeps each device's own realizations
+    under shard_map too, and matches the unsharded run."""
+    import al26.ops.backend as pk
+
+    monkeypatch.setattr(pk, "kernel_here", lambda n, dtype: True)
+    cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=21, dtype="f32",
+                    star_max_mass=3.0, no_massive_star_requirement=True,
+                    integrator=integrator, force_cache=force_cache)
+    bs, ba, cfgs = init_ensemble(cfg, 8)
+    cfg = cfgs[0]
+    s1 = ensemble_run_steps(bs, ba, cfg, 2, flat=True)
+    mesh = make_ensemble_mesh(8)
+    bs8, ba8 = shard_ensemble(bs, ba, mesh)
+    jaxpr = str(ensemble_run_steps.trace(bs8, ba8, cfg, 2, flat=True,
+                                         mesh=mesh).jaxpr)
+    assert "shard_map" in jaxpr
+    s8 = ensemble_run_steps(bs8, ba8, cfg, 2, flat=True, mesh=mesh)
+    assert len(s8.cluster.pos.sharding.device_set) == 8
+    np.testing.assert_allclose(np.asarray(s8.cluster.pos),
+                               np.asarray(s1.cluster.pos), rtol=0,
+                               atol=1e-5)
